@@ -2,6 +2,8 @@
 
 The twin of the JAX package ``repro``, which stays the reference.  It imports
 torch and numpy only.  Ported so far: ``core.packing``, ``core.epsm``
-(find / count / positions through the EPSMa/b/c CUDA kernels) and
+(find / count / positions through the EPSMa/b/c CUDA kernels),
+``core.engine`` and ``core.multipattern`` (P patterns x B texts, with the
+multi-pattern CUDA kernel on the full-mask EPSMb route), ``obs`` and
 ``data.corpus``.
 """

@@ -1,7 +1,9 @@
 """Core EPSM library in PyTorch: the parts of ``repro.core`` ported so far.
 
-Only the single-pattern EPSM path (``packing`` and ``epsm``) is ported; the
-engine, streams and shards are still to come (ROADMAP.md queue 1).
+Ported: ``packing``, the single-pattern EPSM path (``epsm``), the shared-text
+batched engine (``engine``) and the multi-pattern API over it
+(``multipattern``).  Streams, shards and the automaton are still to come
+(ROADMAP.md queue 1).
 """
 
 from repro_torch.core.epsm import (
@@ -18,17 +20,40 @@ from repro_torch.core.epsm import (
     select_algo,
     select_algo_tuned,
 )
+from repro_torch.core.engine import (
+    FingerprintBank,
+    PatternPlan,
+    TextIndex,
+    any_many,
+    build_index,
+    compile_patterns,
+    count_many,
+    match_many,
+)
+from repro_torch.core.multipattern import PatternSet, contains_any, count_multi, find_multi
 
 __all__ = [
     "EPSMA_MAX",
     "EPSMB_MAX",
     "EPSMC_BETA",
     "EPSMC_KBITS",
+    "FingerprintBank",
+    "PatternPlan",
+    "PatternSet",
+    "TextIndex",
+    "any_many",
+    "build_index",
+    "compile_patterns",
+    "contains_any",
     "count",
+    "count_many",
+    "count_multi",
     "epsma",
     "epsmb",
     "epsmc",
     "find",
+    "find_multi",
+    "match_many",
     "positions",
     "select_algo",
     "select_algo_tuned",

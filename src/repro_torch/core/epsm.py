@@ -176,9 +176,10 @@ def find(text, pattern, *, algo: str = "auto", k: int = 0,
 
 def count(text, pattern, *, algo: str = "auto", k: int = 0,
           stream: Optional[bool] = None, device=None) -> torch.Tensor:
-    """Occurrence count: a 0-d int64 tensor on the text's device."""
+    """Occurrence count: a 0-d int32 tensor on the text's device, as the
+    reference's ``count`` returns."""
     mask = find(text, pattern, algo=algo, k=k, stream=stream, device=device)
-    return mask.sum(dtype=torch.int64)
+    return mask.sum(dtype=torch.int32)
 
 
 def positions(text, pattern, *, algo: str = "auto", k: int = 0,

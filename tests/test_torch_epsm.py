@@ -106,7 +106,10 @@ def test_readme_quickstart():
 def test_count_positions_match_reference_functions(m):
     t = _text(1000, 4, seed=m)
     p = t[100 : 100 + m].copy()
-    assert int(P.count(t, p, device="cpu")) == int(R.count(t, p))
+    got, want = P.count(t, p, device="cpu"), R.count(t, p)
+    # a 0-d int32 count, as the reference returns
+    assert got.dtype == torch.int32 and got.ndim == 0 and np.asarray(want).dtype == np.int32
+    assert int(got) == int(want)
     np.testing.assert_array_equal(P.positions(t, p, device="cpu"), R.positions(t, p))
 
 

@@ -108,3 +108,13 @@ def test_hash_blocks(kbits):
     w_ref = ref.fingerprint_weights(8)
     got = port.hash_blocks(torch.from_numpy(blocks), port.fingerprint_weights(8), kbits)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref.hash_blocks(blocks, w_ref, kbits)))
+
+
+def test_engine_constants_equal_reference():
+    from repro.core import engine as ref_engine
+    from repro_torch.core import engine as port_engine
+
+    for name in ("ENGINE_KBITS", "DICT_BUCKET_MIN_P", "DICT_BBITS_MAX", "DICT_SLOTS_PER_PATTERN",
+                 "SLOT_VERIFY_CAP", "AUTOMATON_MIN_P", "DENSE_ROUTE_RHO", "CAND_BLOCK",
+                 "SPARSE_B_MIN_ELEMS"):
+        assert getattr(port_engine, name) == getattr(ref_engine, name), name

@@ -5,10 +5,10 @@ Run from the repository root, with one card and no arguments:
 
     python3 chip_smoke.py [--seed S]
 
-Phases, one JSON line each (two for main-multi):
+Phases, one JSON line each (more for main-multi and main-stream):
 
   env           torch / CUDA versions and the card's name and power limit;
-  build         nvcc builds the four kernels from src/repro_torch/kernels/csrc,
+  build         nvcc builds the six kernels from src/repro_torch/kernels/csrc,
                 one nvcc per source, all at once;
   compare       each EPSM kernel's wrapper against its plain PyTorch version on
                 the card, bit for bit (torch.equal on the whole mask: the
@@ -16,6 +16,17 @@ Phases, one JSON line each (two for main-multi):
   compare-multi the multi-pattern kernel against its plain version the same
                 way: n, B, P, m, alphabet, flood, trailing 0x00, unaligned row
                 views, LUT widths 17..22 bits, and end_min through the engine;
+  compare-stream the megascan kernel against its plain version (the engine's
+                exact count_many and the dense mismatch count, both plain
+                PyTorch, with end_min) bit for bit: windows of 1 byte to
+                64 MiB, L < window length, seam bounds prev_ov, a/b/c/x group
+                mixes, m at the eligibility edges, a 16 MiB flood, patterns
+                ending in 0x00, k in {1, 2, 127}, and the main stream's own
+                112-pattern set at the window the stream cuts, k = 0 and 1;
+  compare-approx the approx kernel against its plain version: m 1..127, k 1..m,
+                LUT gate on and off, flood, trailing 0x00, ragged lengths,
+                70000 rows, an unaligned row view, and end_min through the
+                engine's k-mismatch mask route;
   main          epsm.find / count / positions with algo="auto" on device texts of
                 1 GiB genome, 256 MiB protein and 256 MiB english, with the kernels'
                 launch counters set to 0 just before and read just after;
@@ -25,9 +36,24 @@ Phases, one JSON line each (two for main-multi):
                 batch, multipattern_batched on an (8, 8 MiB) batch), each run
                 between counter resets, each output checked against an
                 independent path on the card afterwards;
-  timing        median kernel times (CUDA events) beside the plain versions'
-                times and the memory bounds, and the times of epsm.find and
-                epsm.count around the EPSM kernels.
+  main-stream   streaming at full size from host memory: a 4 GiB genome through
+                StreamScanner(plans) (megascan by default on the card) with 112
+                patterns (a/b/c groups), against epsm.count on the text
+                resident on the card, and 256 MiB of it at k = 1 ('x'
+                groups) against the plain version window by window and the
+                resident count_many(k=1), plus a
+                fenced trace of 1 GiB (host assembly, copy, kernel); a 256 MiB
+                gzip english source (traced the same way) through stream_count and
+                PatternSet.contains_any_stream; epsm.positions auto-streaming a
+                256 MiB host protein text against the resident call;
+  main-approx   epsm.find(k=) on 256 MiB protein, PatternSet(k=1).count_each on
+                64 MiB english and approx_batched on an (8, 8 MiB) batch, each
+                against the plain version on the card;
+  timing        median kernel times (CUDA events, queued behind a device sleep
+                so they exclude the wrapper's host time) beside the plain
+                versions' times and the bounds, and the times of epsm.find and
+                epsm.count around the EPSM kernels; megascan at the stream's
+                window (the kernels line) and on one 64 MiB window.
 
 Then one line {"kernels": [...]}, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.  Any failed
@@ -38,11 +64,13 @@ nonzero when no CUDA device is available or the port's package is missing.
 from __future__ import annotations
 
 import argparse
+import gzip
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -52,17 +80,33 @@ MIB = 1 << 20
 DEVICE = "cuda"
 MAIN_LENGTHS = (2, 3, 4, 8, 12, 16, 24, 32, 64)
 PATTERNS_PER_LENGTH = 16
+STREAM_LENGTHS = (3, 6, 8, 12, 16, 24, 32)  # 'a', three 'b' and three 'c' groups
 KERNEL_SOURCES = {
     "epsma": ("src/repro_torch/kernels/csrc/epsma.cu", "src/repro/kernels/epsma/epsma.py:28"),
     "epsmb": ("src/repro_torch/kernels/csrc/epsmb.cu", "src/repro/kernels/epsmb/epsmb.py:43"),
     "epsmc": ("src/repro_torch/kernels/csrc/epsmc.cu", "src/repro/kernels/epsmc/epsmc.py:47"),
     "multipattern": ("src/repro_torch/kernels/csrc/multipattern.cu",
                      "src/repro/kernels/multipattern/multipattern.py:53"),
+    "megascan": ("src/repro_torch/kernels/csrc/megascan.cu",
+                 "src/repro/kernels/megascan/megascan.py:81"),
+    "approx": ("src/repro_torch/kernels/csrc/approx.cu", "src/repro/kernels/approx/approx.py:55"),
 }
+# H100 SXM integer rate on the CUDA cores (NVIDIA H100 whitepaper): 132 SMs x
+# 64 INT32 lanes a clock x 1.98 GHz boost.  The compares, adds, shifts and
+# multiply-adds counted in the megascan and approx operation bounds run there,
+# not on the tensor cores.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# Device clock cycles (~5 ms) a queued timing waits behind, longer than any
+# wrapper's host time before its launch
+QUEUE_CYCLES = 10_000_000
+# Positions one warp owns in the megascan and approx kernels (32 lanes x 16),
+# the span of their per-warp gates
+WARP_SPAN = 512
 
 
-def emit(obj) -> None:
+def emit(obj):
     print(json.dumps(obj), flush=True)
+    return obj
 
 
 def check(ok: bool, what: str) -> None:
@@ -96,12 +140,25 @@ class Port:
         from repro_torch.kernels.multipattern import ops as mp_ops
         from repro_torch.kernels.multipattern.multipattern import multipattern_cuda
         from repro_torch.kernels.multipattern.ref import multipattern_batched_ref
+        from repro_torch.core import stream
+        from repro_torch.approx import counting
+        from repro_torch.kernels.megascan import ops as ms_ops
+        from repro_torch.kernels.megascan.megascan import megascan_cuda
+        from repro_torch.kernels.megascan.ref import megascan_count_window_ref
+        from repro_torch.kernels.approx import ops as ax_ops
+        from repro_torch.kernels.approx.approx import approx_cuda
+        from repro_torch.kernels.approx.ref import approx_batched_ref
+        from repro_torch.obs.recorder import Recorder
 
         self.epsm, self.corpus, self.build = epsm, corpus, _build
         self.engine, self.mp, self.mp_ops = engine, multipattern, mp_ops
         self.mp_cuda, self.mp_plain = multipattern_cuda, multipattern_batched_ref
+        self.stream, self.counting, self.Recorder = stream, counting, Recorder
+        self.ms_ops, self.ms_plain = ms_ops, megascan_count_window_ref
+        self.ax_ops, self.ax_cuda, self.ax_plain = ax_ops, approx_cuda, approx_batched_ref
         self.wrappers = {"epsma": epsma_cuda, "epsmb": epsmb_cuda, "epsmc": epsmc_cuda,
-                         "multipattern": multipattern_cuda}
+                         "multipattern": multipattern_cuda, "megascan": megascan_cuda,
+                         "approx": approx_cuda}
         self.plain = {"epsma": epsma_ref, "epsmb": epsmb_ref, "epsmc": epsmc_filter_ref}
 
     def reset_launches(self) -> None:
@@ -229,14 +286,20 @@ def main_path(torch, np, port: Port, seed: int, genome_n: int, other_n: int) -> 
     return launches
 
 
-def time_cuda(torch, fn, reps: int) -> float:
-    """Median milliseconds of `reps` runs of fn, each between CUDA events."""
+def time_cuda(torch, fn, reps: int, queued: bool = False) -> float:
+    """Median milliseconds of `reps` runs of fn, each between CUDA events.
+    With ``queued`` the events and fn's launches are enqueued behind a
+    ~5 ms device sleep, so the interval is the device's time alone and not
+    the host's time to issue the launch (a kernel's own time; unqueued it
+    is a call's time, the host's share included when the host is slower)."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         fn()
         end.record()
@@ -254,7 +317,7 @@ def timing(torch, port: Port, seed: int, n: int) -> dict:
                         ("epsmc", 16, {}), ("epsmc", 32, {})):
         s = int(torch.randint(0, n - m + 1, (1,), generator=gen, device=DEVICE))
         p = text[s : s + m].clone()
-        kernel_ms = time_cuda(torch, lambda: port.wrappers[name](text, p, **kw), 20)
+        kernel_ms = time_cuda(torch, lambda: port.wrappers[name](text, p, **kw), 20, queued=True)
         plain_ms = time_cuda(torch, lambda: port.plain[name](text, p, **kw), 5)
         # the entry points around the kernel: mask allocation, dispatch, and
         # for count the reduction over the mask
@@ -490,7 +553,7 @@ def timing_multipattern(torch, port: Port, seed: int, B: int, n: int, P: int) ->
         use_lut = plan.regime == "b"
         kernel_ms = time_cuda(torch, lambda: port.mp_cuda(
             texts, plan.anchors, m, plan.lut_any, kbits=plan.kbits, use_lut=use_lut,
-            lengths=lengths), 20)
+            lengths=lengths), 20, queued=True)
         plain_ms = time_cuda(torch, lambda: port.mp_plain(texts, ps, lengths), 5)
         bound_ms = mp_bound_ms(B, n, P, m, plan.kbits)
         row = {"phase": "timing", "kernel": "multipattern", "B": B, "n": n, "P": P, "m": m,
@@ -500,6 +563,595 @@ def timing_multipattern(torch, port: Port, seed: int, B: int, n: int, P: int) ->
         emit(row)
         rows.append(row)
     return rows[0]
+
+
+def genome_text(torch, n: int, gen):
+    """An n-byte ACGT text made on the card, 256 MiB at a time (the alphabet
+    lookup indexes with int64)."""
+    out = torch.empty(n, dtype=torch.uint8, device=DEVICE)
+    lut = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=DEVICE)
+    for s in range(0, n, 256 * MIB):
+        e = min(n, s + 256 * MIB)
+        out[s:e] = lut[torch.randint(0, 4, (e - s,), generator=gen, device=DEVICE)]
+    return out
+
+
+def compare_megascan(torch, np, port: Port, seed: int) -> dict:
+    """Hold the megascan kernel against its plain version (plain PyTorch:
+    the engine's exact count_many and, for k > 0, the dense mismatch count,
+    over the same window with length and end_min) bit for bit."""
+    engine, ms = port.engine, port.ms_ops
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
+    rs = np.random.RandomState(seed + 3)
+    done, max_err = {"cases": 0, "ineligible": 0}, 0
+
+    def spec_of(plans, k=None):
+        spec = ms.build_mega_spec(plans, k=k)
+        check(spec is not None, f"megascan spec None for m={[p.m for p in plans]} k={k}")
+        return spec
+
+    def hold(window, plans, spec, L, ov, label):
+        nonlocal max_err
+        got = ms.megascan_count_window(window, plans, spec, length=L, prev_ov=ov)
+        want = port.ms_plain(window, plans, k=spec.k, length=L, prev_ov=ov)
+        torch.cuda.synchronize()
+        max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+        if not torch.equal(got, want):
+            bad = torch.nonzero(got != want).flatten()[:4].tolist()
+            raise RuntimeError(f"megascan {label}: kernel != plain at rows {bad}: "
+                               f"{got[bad].tolist()} vs {want[bad].tolist()}")
+        done["cases"] += 1
+        return got
+
+    def pats_from(host, lengths, per=2, sigma=4):
+        pats = []
+        for m in lengths:
+            for _ in range(per):
+                s = rs.randint(0, max(1, len(host) - m + 1))
+                p = host[s : s + m]
+                pats.append(p.copy() if len(p) == m else rs.randint(0, sigma, m).astype(np.uint8))
+            pats.append(rs.randint(0, sigma, m).astype(np.uint8))
+        return pats
+
+    mixes = {0: (2, 3, 5, 8, 13, 16, 24, 40), 1: (2, 5, 8, 13, 16, 33)}
+    for n in (1, 4095, 4096, 4097, 1_000_003, 64 * MIB):
+        window = random_text(torch, n, 4, gen)
+        host = window[: min(n, 1 << 20)].cpu().numpy()
+        for k, lengths in mixes.items():
+            plans = engine.compile_patterns(pats_from(host, lengths), k=k, device=DEVICE)
+            spec = spec_of(plans, k if k else None)
+            check({g.kind for g in spec.groups} == ({"x"} if k else {"a", "b", "c"}),
+                  f"group kinds {spec.groups}")
+            for L in sorted({n, max(0, n - 37)}):
+                for ov in sorted({0, 1, 13, 31, 100, max(0, L - 5)}):
+                    hold(window, plans, spec, L, ov, f"n={n} L={L} ov={ov} k={k}")
+    # the main stream's own set (16 patterns at each of STREAM_LENGTHS) at
+    # the window its scanner cuts, seam bounds up to its overlap and near L
+    host = genome_text(torch, MIB, gen).cpu().numpy()
+    pats = [p for m in STREAM_LENGTHS for p in port.corpus.extract_patterns(host, m, 16, seed=400 + m)]
+    for k in (0, 1):
+        plans = engine.compile_patterns(pats, k=k, device=DEVICE)
+        sc = port.stream.StreamScanner(plans, "auto", k=k or None)
+        spec = spec_of(plans, k or None)
+        n = sc.window_bytes
+        window = genome_text(torch, n, gen)
+        for i, s in enumerate(range(4096 - 20, n - 64, n // 7)):  # across tile edges
+            p = pats[(17 * i) % len(pats)]
+            window[s : s + len(p)] = torch.from_numpy(p.copy()).to(DEVICE)
+        for L in (n, n - 37):
+            for ov in (0, 13, sc.overlap, L - 5):
+                hold(window, plans, spec, L, ov, f"stream set n={n} L={L} ov={ov} k={k}")
+    # m at the eligibility edges: 'x' up to m = 4093 (4096 - 3); 'c' up to
+    # stride + m = 4095 (m = 2055; no m gives exactly 4096, m = 2056 gives 4104)
+    n = 1_000_003
+    window = random_text(torch, n, 4, gen)
+    host = window.cpu().numpy()
+    for k, lengths in ((1, (4093,)), (0, (2055,)), (2, (4000, 2055))):
+        plans = engine.compile_patterns(pats_from(host, lengths, per=1), k=k, device=DEVICE)
+        spec = spec_of(plans, k if k else None)
+        for L, ov in ((n, 0), (n - 1000, 4092), (n, n - 5000)):
+            hold(window, plans, spec, L, ov, f"edge m={lengths} k={k} L={L} ov={ov}")
+    for k, lengths in ((1, (4094,)), (0, (2056,)), (128, (8,))):
+        plans = engine.compile_patterns(pats_from(host, lengths, per=1), device=DEVICE)
+        check(ms.build_mega_spec(plans, k=k or None) is None, f"m={lengths} k={k} must be ineligible")
+        done["ineligible"] += 1
+    # k in {1, 2, 127} over mixed lengths, and budgets of m or more
+    for k, lengths in ((1, (3, 7, 12, 20)), (2, (4, 9, 31)), (127, (5, 16, 130, 200))):
+        plans = engine.compile_patterns(pats_from(host, lengths), k=k, device=DEVICE)
+        spec = spec_of(plans)
+        for ov in (0, 13, 777):
+            hold(window, plans, spec, n - 3, ov, f"k={k} ov={ov}")
+    # the flood: every start of 'A' * m matches
+    flood = torch.full((16 * MIB,), ord("A"), dtype=torch.uint8, device=DEVICE)
+    fp = [b"AAA", b"A" * 8, b"A" * 12, b"A" * 24, b"AAAAAAAB", b"B" + b"A" * 23]
+    for k in (0, 1):
+        plans = engine.compile_patterns(fp, k=k, device=DEVICE)
+        spec = spec_of(plans, k if k else None)
+        got = hold(flood, plans, spec, 16 * MIB, 0, f"flood k={k}")
+        want = {b"AAA": 16 * MIB - 2, b"A" * 8: 16 * MIB - 7}
+        order = engine.plan_order(plans)
+        for row, pid in enumerate(order):
+            if fp[pid] in want:
+                check(int(got[row]) == want[fp[pid]], f"flood count {fp[pid]!r} k={k}")
+    # patterns ending in 0x00 at the very end of the window: counted with
+    # L = n, and never where only the zero padding past L would complete them
+    text = random_text(torch, 1_000_003, 255, gen) + 1  # bytes 1..255
+    text[-1] = 0
+    host = text.cpu().numpy()
+    zpats = [host[-m:].copy() for m in (3, 8, 24)]
+    for k in (0, 1):
+        plans = engine.compile_patterns(zpats, k=k, device=DEVICE)
+        spec = spec_of(plans, k if k else None)
+        full = hold(text, plans, spec, text.numel(), 0, f"trailing 0x00 k={k}")
+        check(int(full.min()) >= 1, f"trailing 0x00 occurrence k={k}")
+        # L = n - 1: the last byte is now the window's zero padding
+        trap = hold(text, plans, spec, text.numel() - 1, 0, f"zero-padding trap k={k}")
+        if k == 0:
+            check(int((full - trap).min()) == 1, "zero-padding trap: the end occurrence counted")
+    return {"cases": done, "max_abs_err": max_err}
+
+
+def compare_approx(torch, np, port: Port, seed: int) -> dict:
+    """Hold the approx kernel against its plain version on the card, bit for
+    bit, through the op (gate as the plan gives it) and the launch wrapper
+    (gate forced on and off)."""
+    engine = port.engine
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 4)
+    done, max_err = {"op": 0, "wrapper": 0, "engine": 0}, 0
+
+    def hold(got, want, label):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        if got.numel():
+            max_err = max(max_err, int((got.to(torch.int8) - want.to(torch.int8)).abs().max()))
+        if not torch.equal(got, want):
+            diff = torch.nonzero(got != want)[:4].tolist()
+            raise RuntimeError(f"approx {label}: kernel != plain at {diff}")
+
+    def ragged(B, n):
+        if B == 1:
+            return torch.full((1,), n, dtype=torch.int32, device=DEVICE)
+        return torch.tensor([n, max(0, n - 5), n // 2], dtype=torch.int32, device=DEVICE)
+
+    def wrapper_case(texts, ps, k, lengths, label):
+        (plan,) = engine.compile_patterns(list(ps.cpu().numpy()), k=max(1, min(k, 2)),
+                                          automaton=False, device=DEVICE)
+        luts = [None]
+        if plan.relaxed_lut is not None and k <= plan.k:
+            luts.append(plan.relaxed_lut)
+        for lut in luts:
+            got = port.ax_cuda(texts, plan.patterns, plan.anchors, k, lut, kbits=plan.kbits,
+                               lengths=lengths)
+            hold(got, port.ax_plain(texts, ps, k, lengths), f"{label} gate={lut is not None}")
+            done["wrapper"] += 1
+
+    for n in (1, 4095, 4097, 1_000_003):
+        for sigma in (4, 256):
+            for B in (1, 3):
+                texts = random_text(torch, B * n, sigma, gen).view(B, n)
+                lengths = ragged(B, n)
+                for m in (1, 3, 4, 5, 16, 127):
+                    if m > n:
+                        continue
+                    starts = torch.randint(0, n - m + 1, (4,), generator=gen, device=DEVICE)
+                    ps = torch.stack([texts[0, s : s + m] for s in starts.tolist()])
+                    ps[1, m // 2] ^= 1  # one mismatch
+                    for k in sorted({1, 2, 3, m}):
+                        label = f"n={n} sigma={sigma} B={B} m={m} k={k}"
+                        hold(port.ax_ops.approx_batched(texts, ps, k, lengths),
+                             port.ax_plain(texts, ps, k, lengths), label)
+                        done["op"] += 1
+                        if n == 1_000_003 and B == 3:
+                            wrapper_case(texts, ps, k, lengths, label)
+            if n > 64:
+                text = random_text(torch, n + 1, sigma, gen)
+                view = text[1:]  # a row view offset by one byte: unaligned staging
+                ps = torch.stack([view[-8:], view[:8]])
+                hold(port.ax_ops.approx_batched(view, ps, 1), port.ax_plain(view, ps, 1),
+                     f"unaligned n={n}")
+                done["op"] += 1
+    # more rows than a grid's y extent (65535): the kernel loops over rows
+    texts = random_text(torch, 70_000 * 37, 4, gen).view(70_000, 37)
+    lengths = torch.randint(0, 38, (70_000,), generator=gen, device=DEVICE, dtype=torch.int32)
+    ps = torch.stack([texts[5, 3:8], texts[69_999, 30:35]])
+    hold(port.ax_ops.approx_batched(texts, ps, 1, lengths), port.ax_plain(texts, ps, 1, lengths),
+         "B=70000")
+    done["op"] += 1
+    # the flood: every start of 'A' * 16 within k of patterns with j changes
+    flood = torch.full((1, 16 * MIB), ord("A"), dtype=torch.uint8, device=DEVICE)
+    ps = flood[0, :16].repeat(3, 1)
+    ps[1, 5] = ord("B")
+    ps[2, 1] = ps[2, 9] = ord("C")
+    for k in (1, 2):
+        got = port.ax_ops.approx_batched(flood, ps, k)
+        hold(got, port.ax_plain(flood, ps, k), f"flood k={k}")
+        counts = got[0].sum(-1).tolist()
+        check(counts == [16 * MIB - 15, 16 * MIB - 15, (16 * MIB - 15) * (k == 2)],
+              f"flood counts k={k}: {counts}")
+        done["op"] += 1
+    # patterns ending in 0x00: found at the very end, never completed by the
+    # zero padding past n
+    for m in (3, 5, 16):
+        text = random_text(torch, 1_000_003, 255, gen) + 1
+        text[-1] = 0
+        pat = text[-m:].clone()[None, :]
+        pat[0, 0] ^= 1  # one mismatch, within k = 1
+        got = port.ax_ops.approx_batched(text, pat, 1)
+        hold(got, port.ax_plain(text, pat, 1), f"trailing 0x00 m={m}")
+        check(bool(got[0, 0, -m]), f"trailing 0x00 occurrence m={m}")
+        short = text[:-1]
+        got = port.ax_ops.approx_batched(short, pat, 1)
+        hold(got, port.ax_plain(short, pat, 1), f"zero-padding trap m={m}")
+        check(not bool(got[0, 0, -m + 1 :].any()), f"zero-padding trap m={m}")
+        done["op"] += 2
+    # end_min through the engine's k-mismatch mask route (kernel vs plain)
+    texts = random_text(torch, 3 * 100_003, 4, gen).view(3, 100_003)
+    pats = [texts[0, s : s + m].cpu().numpy() for m in (3, 7, 12) for s in (11, 5000, 77777)]
+    idx = engine.build_index(texts, torch.tensor([100_003, 60_000, 33]))
+    for k in (1, 2):
+        for plan in engine.compile_patterns(pats, k=k, device=DEVICE):
+            for end_min in (None, 0, 50_000, 100_002):
+                hold(port.counting.match_group_approx(idx, plan, k, end_min),
+                     port.counting._dense_match_approx(idx, plan, k, end_min),
+                     f"engine k={k} m={plan.m} end_min={end_min}")
+                done["engine"] += 1
+    return {"cases": done, "max_abs_err": max_err}
+
+
+def windows_of(n: int, window_bytes: int, step: int) -> int:
+    """Windows a StreamScanner emits for an n-byte source."""
+    return 0 if n == 0 else 1 + -(-max(0, n - window_bytes) // step)
+
+
+def plain_stream_counts(torch, port: Port, text, plans, k: int, overlap: int, piece: int):
+    """The megascan plain version over a text resident on the card, cut into
+    windows of ``piece`` new bytes as a stream cuts it (each window re-reads
+    ``overlap`` bytes and counts only occurrences ending in its new bytes)."""
+    total = None
+    for s in range(0, text.numel(), piece):
+        lo = max(0, s - overlap)
+        c = port.ms_plain(text[lo : s + piece], plans, k=k, prev_ov=s - lo)
+        total = c if total is None else total + c
+    return total
+
+
+def main_stream(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """Streaming at full size from host memory, each run between a counter
+    reset and a counter read, each output checked afterwards against the
+    counts on a text resident on the card."""
+    engine, stream, corpus, epsm = port.engine, port.stream, port.corpus, port.epsm
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 5)
+    out = {}
+    launches = {name: 0 for name in port.wrappers}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        port.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[label] = {"wall_s": time.perf_counter() - t0, "launches": port.launches()}
+        for name, v in port.launches().items():
+            launches[name] += v
+        return res
+
+    # -- the genome: 112 patterns (16 at each m), planted across the first 16 seams
+    n = sizes["genome"]
+    text = genome_text(torch, n, gen)
+    host = text.cpu().numpy()
+    pats = [p for m in STREAM_LENGTHS for p in corpus.extract_patterns(host, m, 16, seed=400 + m)]
+    plans = engine.compile_patterns(pats, device=DEVICE)
+    sc = stream.StreamScanner(plans, "auto")
+    check(sc.spec is not None, "build_mega_spec is None for the genome plan set")
+    check({g.kind for g in sc.spec.groups} == {"a", "b", "c"}, f"groups {sc.spec.groups}")
+    for w in range(1, 17):  # straddle the end of window w - 1's new bytes
+        p = pats[(7 * w) % len(pats)]
+        s = w * sc.step_bytes + sc.overlap - len(p) // 2
+        host[s : s + len(p)] = p
+        text[s : s + len(p)] = torch.from_numpy(p.copy()).to(DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counts = run("genome", lambda: sc.count_many(host))
+    rise = torch.cuda.max_memory_allocated() - base
+    n_win = windows_of(n, sc.window_bytes, sc.step_bytes)
+    for row, pid in enumerate(sc.order):
+        want = int(epsm.count(text, torch.from_numpy(pats[pid].copy()).to(DEVICE)))
+        check(int(counts[row]) == want, f"genome stream row {row} (m={len(pats[pid])}): "
+                                        f"{int(counts[row])} != resident {want}")
+    ms_launches = out["genome"]["launches"]["megascan"]
+    check(sc.dispatch_count == n_win == ms_launches,
+          f"dispatch_count {sc.dispatch_count}, windows {n_win}, megascan launches {ms_launches}")
+    check(rise < GIB, f"device memory rose by {rise} bytes over the scan")
+    emit({"phase": "main-stream", "run": "genome", "bytes": n, "patterns": len(pats),
+          "chunk_bytes": sc.chunk_bytes, "window_bytes": sc.window_bytes, "windows": n_win,
+          "dispatch_count": sc.dispatch_count, "megascan_launches": ms_launches,
+          "device_bytes_per_chunk": sc.device_bytes_per_chunk, "memory_rise_bytes": rise,
+          "wall_s": out["genome"]["wall_s"], "GB_per_s": n / out["genome"]["wall_s"] / 1e9,
+          "counts_total": int(counts.sum(dtype=np.int64))})
+    emit(traced_scan(torch, port, "genome_traced", plans, host[: sizes["traced"]],
+                     chunk_bytes=sc.chunk_bytes))
+    # -- k = 1 over 256 MiB of the genome: 'x' groups
+    nk = sizes["kmismatch"]
+    plans1 = engine.compile_patterns(pats, k=1, device=DEVICE)
+    sc1 = stream.StreamScanner(plans1, "auto", k=1)
+    check(sc1.spec is not None and {g.kind for g in sc1.spec.groups} == {"x"},
+          "k = 1 plan set must be eligible with 'x' groups only")
+    counts1 = run("genome_k1", lambda: sc1.count_many(host[:nk]))
+    want1 = plain_stream_counts(torch, port, text[:nk], plans1, 1, sc1.overlap, 32 * MIB)
+    check(np.array_equal(counts1, want1.cpu().numpy()), "k = 1 stream != plain version")
+    resident1 = engine.count_many(engine.build_index(text[:nk]), plans1, k=1)[0]
+    check(torch.equal(resident1, want1), "k = 1 resident count_many != plain version")
+    n_win1 = windows_of(nk, sc1.window_bytes, sc1.step_bytes)
+    check(sc1.dispatch_count == n_win1 == out["genome_k1"]["launches"]["megascan"],
+          "k = 1 dispatches != windows != megascan launches")
+    emit({"phase": "main-stream", "run": "genome_k1", "bytes": nk, "windows": n_win1,
+          "wall_s": out["genome_k1"]["wall_s"], "GB_per_s": nk / out["genome_k1"]["wall_s"] / 1e9,
+          "counts_total": int(counts1.sum(dtype=np.int64))})
+    del text
+    # -- a gzip english source of several members, and contains_any_stream
+    ne = sizes["english"]
+    english = np.tile(corpus.english(4 * MIB, seed), -(-ne // (4 * MIB)))[:ne]
+    members = np.array_split(english, 8)
+    with ThreadPoolExecutor(8) as pool:
+        blob = b"".join(pool.map(lambda a: gzip.compress(a.tobytes(), compresslevel=1), members))
+    epats = [p for m in (2, 3, 5, 8, 12, 16, 24, 32)
+             for p in corpus.extract_patterns(english, m, 8, seed=500 + m)]
+    got = run("gzip", lambda: stream.stream_count(stream.Compressed(blob), epats))
+    gz = emit(traced_scan(torch, port, "gzip_traced", engine.compile_patterns_cached(epats),
+                          stream.Compressed(blob), chunk_bytes="auto"))
+    check(out["gzip"]["launches"]["megascan"] == gz["windows"],
+          f"gzip: megascan launches {out['gzip']['launches']['megascan']} != windows {gz['windows']}")
+    dev_en = torch.from_numpy(english).to(DEVICE)
+    for i, p in enumerate(epats):
+        want = int(epsm.count(dev_en, torch.from_numpy(p.copy()).to(DEVICE)))
+        check(int(got[i]) == want, f"gzip stream pattern {i}: {int(got[i])} != {want}")
+    del dev_en
+    rsp = np.random.RandomState(seed + 6)
+    block = [rsp.randint(128, 256, size=m).astype(np.uint8) for m in (6, 9, 12, 20) for _ in range(4)]
+    ps = port.mp.PatternSet(block, device=DEVICE)
+    doc = english[: 64 * MIB].copy()
+    clean = run("contains_any_stream_clean", lambda: ps.contains_any_stream(doc))
+    doc[40 * MIB : 40 * MIB + 12] = block[9]
+    dirty = run("contains_any_stream_dirty", lambda: ps.contains_any_stream(doc))
+    check(not clean and dirty, f"contains_any_stream clean={clean} dirty={dirty}")
+    emit({"phase": "main-stream", "run": "gzip", "bytes": ne, "compressed_bytes": len(blob),
+          "members": len(members), "wall_s": out["gzip"]["wall_s"],
+          "GB_per_s": ne / out["gzip"]["wall_s"] / 1e9,
+          "contains_any_stream": {"clean": clean, "dirty": dirty,
+                                  "clean_wall_s": out["contains_any_stream_clean"]["wall_s"],
+                                  "dirty_wall_s": out["contains_any_stream_dirty"]["wall_s"]}})
+    del english, doc, blob
+    # -- epsm.positions on a host protein text auto-streams (find_stream)
+    npr = sizes["protein"]
+    prot = random_text(torch, npr, 20, gen, corpus.PROTEIN_ALPHABET)
+    phost = prot.cpu().numpy()
+    check(npr >= epsm.STREAM_AUTO_BYTES, "the protein text must be long enough to auto-stream")
+    for m in (4, 8, 20):
+        (p,) = corpus.extract_patterns(phost, m, 1, seed=600 + m)
+        pos = run(f"positions_m{m}", lambda: epsm.positions(phost, p))
+        want = epsm.positions(prot, torch.from_numpy(p.copy()).to(DEVICE))
+        check(np.array_equal(pos, want), f"streamed positions m={m} != resident")
+        check(len(pos) >= 1, f"positions m={m}: extracted pattern not found")
+    emit({"phase": "main-stream", "run": "positions", "bytes": npr,
+          "wall_s": {m: out[f"positions_m{m}"]["wall_s"] for m in (4, 8, 20)}})
+    emit({"phase": "main-stream", "launches": launches})
+    return {"launches": launches, "rise": rise, "window_bytes": sc.window_bytes,
+            "wall_s": {k: v["wall_s"] for k, v in out.items()}}
+
+
+def traced_scan(torch, port: Port, label: str, plans, source, **kw) -> dict:
+    """Where a stream's time goes: the same scan with a fenced recorder, so
+    the host_prep span times the window's read, decompression and assembly,
+    device_put the host-to-device copy and dispatch the scan on the card,
+    each waiting for its device work (the pipeline is serialized)."""
+    rec = port.Recorder(enabled=True, fence=True)
+    sc = port.stream.StreamScanner(plans, recorder=rec, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc.count_many(source)
+    return {"phase": "main-stream", "run": label, "windows": sc.dispatch_count,
+            "fenced_wall_s": time.perf_counter() - t0, "span_ms": rec.span_totals_ms()}
+
+
+def main_approx(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """k-mismatch matching at full size: each call between counter resets,
+    each output checked afterwards against the plain version on the card.
+    The calls that reach the kernel are counted by a spy on the engine's
+    k-mismatch mask route, the one caller of the kernel on these paths."""
+    corpus, epsm, counting = port.corpus, port.epsm, port.counting
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 7)
+    launches, expected, walls = 0, 0, {}
+    route = counting.match_group_approx
+
+    def spy(*args, **kw):
+        nonlocal expected
+        expected += 1
+        return route(*args, **kw)
+
+    def run(label, fn):
+        nonlocal launches
+        torch.cuda.synchronize()
+        port.reset_launches()
+        counting.match_group_approx = spy
+        t0 = time.perf_counter()
+        try:
+            res = fn()
+            torch.cuda.synchronize()
+        finally:
+            counting.match_group_approx = route
+        walls[label] = time.perf_counter() - t0
+        got = port.launches()
+        check(all(v == 0 for name, v in got.items() if name != "approx"),
+              f"{label}: another kernel launched: {got}")
+        launches += got["approx"]
+        return res
+
+    prot = random_text(torch, sizes["protein"], 20, gen, corpus.PROTEIN_ALPHABET)
+    host = prot[: 1 << 24].cpu().numpy()
+    for m in (8, 16, 32):
+        (p,) = corpus.extract_patterns(host, m, 1, seed=700 + m)
+        p = torch.from_numpy(p.copy()).to(DEVICE)
+        p[m // 2] = ord("W") if int(p[m // 2]) != ord("W") else ord("A")  # one substitution
+        for k in (1, 2):
+            mask = run(f"find_m{m}_k{k}", lambda: epsm.find(prot, p, k=k))
+            check(torch.equal(mask, port.ax_plain(prot, p[None, :], k)[0, 0]),
+                  f"epsm.find m={m} k={k} != plain")
+            check(int(mask.sum()) >= 1, f"epsm.find m={m} k={k}: planted site not found")
+            del mask
+    del prot
+    ne = sizes["english"]
+    english = np.tile(corpus.english(4 * MIB, seed), -(-ne // (4 * MIB)))[:ne]
+    pats = [p for m in (2, 3, 5, 8, 12, 16, 24, 32)
+            for p in corpus.extract_patterns(english, m, 8, seed=800 + m)]
+    dev_en = torch.from_numpy(english).to(DEVICE)
+    ps = port.mp.PatternSet(pats, k=1, device=DEVICE)
+    counts = run("count_each_k1", lambda: ps.count_each(dev_en))
+    col = 0
+    for plan in ps.plans:
+        want = port.ax_plain(dev_en, plan.patterns, 1).sum(-1, dtype=torch.int32)[0]
+        check(torch.equal(counts[col : col + plan.n_patterns], want), f"count_each k=1 m={plan.m}")
+        col += plan.n_patterns
+    check(int(counts.min()) >= 1, "count_each k=1: an extracted pattern not counted")
+    del dev_en
+    B, nb = sizes["batch"]
+    texts = genome_text(torch, B * nb, gen).view(B, nb)
+    th = texts[0, : 1 << 24].cpu().numpy()
+    bp = torch.from_numpy(corpus.extract_patterns(th, 16, 32, seed=900)).to(DEVICE)
+    masks = run("approx_batched", lambda: port.ax_ops.approx_batched(texts, bp, 2))
+    expected += 1  # the op calls the kernel itself
+    check(torch.equal(masks, port.ax_plain(texts, bp, 2)), "approx_batched != plain")
+    del masks, texts
+    emit({"phase": "main-approx", "wall_s": walls, "launches": launches, "expected": expected})
+    check(launches == expected, f"approx launches {launches} != calls reaching it {expected}")
+    return {"launches": launches, "wall_s": walls}
+
+
+def warp_pass_frac(torch, port: Port, index, m: int, kbits: int, lut) -> float:
+    """Share of the kernels' 512-position warp spans (per row) holding a
+    valid start whose window fingerprint hits ``lut``: the spans whose
+    per-pattern work a LUT-gated group or op cannot skip on this data."""
+    engine = port.engine
+    h = engine.FingerprintBank(index.packed).window_fp(m, kbits)
+    hit = lut[h.long()] & engine._valid_starts(index, m)
+    hit = torch.nn.functional.pad(hit, (0, (-hit.shape[1]) % WARP_SPAN))
+    return float(hit.view(hit.shape[0], -1, WARP_SPAN).any(-1).float().mean())
+
+
+def bound_of(moved_bytes: float, ops: float) -> tuple:
+    """(least ms, what binds): bytes over the memory rate against integer
+    operations over the CUDA cores' INT32 rate."""
+    t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mega_bound_ms(torch, port: Port, window, plans, spec) -> tuple:
+    """(least ms, what binds, operations per position) of one megascan
+    launch over ``window``.  Bytes: the window read once and the counts
+    written once.  Operations: the integer operations the kernel issues at
+    every position whatever verification finds, counted from the plan set's
+    shapes and this window's warp-gate hits:
+      'a'  3 a pattern (mask, compare, add);
+      'b'  the fingerprint chain, 3 a strided word the chain has not yet
+           reached (shared across groups), 3 for the tail word, 6 for the
+           hash and the LUT probe; then 2 a pattern (first-word compare and
+           merge) in the warps the gate lets through;
+      'c'  20 an inspected block (8 byte loads, 8 multiply-adds, mask,
+           probe), one block a stride;
+      'x'  the 'b' fingerprint when the relaxed LUT gates the group, then 5
+           a pattern (__vcmpne4, popcount, shift, compare, merge) in the
+           warps it lets through (all warps without the gate).
+    Verification at candidates is left out, so the count is a lower bound."""
+    index = port.engine.build_index(window)
+    per_pos, chain = 0.0, 0
+    for plan, g in zip(plans, spec.groups):
+        if g.kind == "a":
+            per_pos += 3 * g.n_patterns
+        elif g.kind == "c":
+            per_pos += 20 / g.stride
+        else:
+            frac = 1.0
+            if g.kind == "b" or g.use_lut:
+                ns = g.m // 4
+                per_pos += 3 * max(0, ns - chain) + 3 * (g.m % 4 != 0) + 6
+                chain = max(chain, ns)
+                lut = plan.lut_any if g.kind == "b" else plan.relaxed_lut
+                frac = warp_pass_frac(torch, port, index, g.m, g.kbits, lut)
+            per_pos += frac * g.n_patterns * (2 if g.kind == "b" else 5)
+    n = window.numel()
+    return (*bound_of(n + 4 * spec.p_total, n * per_pos), per_pos)
+
+
+def time_megascan(torch, port: Port, window, plans, spec, label: str) -> dict:
+    out = torch.zeros(spec.p_total, dtype=torch.int32, device=DEVICE)
+
+    def call():
+        return port.ms_ops.megascan_count_window(window, plans, spec, out=out.zero_())
+
+    kernel_ms = time_cuda(torch, call, 20, queued=True)
+    call_ms = time_cuda(torch, call, 20)
+    plain_ms = time_cuda(torch, lambda: port.ms_plain(window, plans, k=spec.k), 5)
+    bound_ms, bound_by, per_pos = mega_bound_ms(torch, port, window, plans, spec)
+    n = window.numel()
+    return emit({"phase": "timing", "kernel": "megascan", "window": label, "n": n,
+                 "patterns": spec.p_total, "k": spec.k or 0,
+                 "groups": "".join(g.kind for g in spec.groups), "kernel_ms": kernel_ms,
+                 "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "ops_per_position": per_pos, "library_ms": None,
+                 "GB_per_s": n / (kernel_ms * 1e-3) / 1e9})
+
+
+def timing_stream_approx(torch, np, port: Port, seed: int, n: int, window_bytes: int,
+                         batch: tuple) -> dict:
+    """The megascan kernel with the 112-pattern stream set (k = 0 and k = 1)
+    at the window the main stream cuts (``window_bytes``, the kernels line's
+    row) and on one 64 MiB window, and the approx kernel at (8, 8 MiB, P =
+    32, m = 16, k = 2), beside their plain versions and bounds."""
+    engine, corpus = port.engine, port.corpus
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 8)
+    window = genome_text(torch, n, gen)
+    host = window[: 1 << 24].cpu().numpy()
+    pats = [p for m in STREAM_LENGTHS for p in corpus.extract_patterns(host, m, 16, seed=400 + m)]
+    rows = {}
+    for k in (0, 1):
+        plans = engine.compile_patterns(pats, k=k, device=DEVICE)
+        spec = port.ms_ops.build_mega_spec(plans, k=k or None)
+        row = time_megascan(torch, port, window[:window_bytes], plans, spec, "stream")
+        rows.setdefault("megascan", row)
+        time_megascan(torch, port, window, plans, spec, "64MiB")
+    B, nb = batch
+    texts = genome_text(torch, B * nb, gen).view(B, nb)
+    lengths = torch.full((B,), nb, dtype=torch.int32, device=DEVICE)
+    bp = torch.from_numpy(corpus.extract_patterns(texts[0, : 1 << 24].cpu().numpy(), 16, 32,
+                                                  seed=900)).to(DEVICE)
+    (plan,) = engine.compile_patterns(list(bp.cpu().numpy()), k=2, device=DEVICE)
+    lut = plan.relaxed_lut
+    def call():
+        return port.ax_cuda(texts, plan.patterns, plan.anchors, 2, lut, kbits=plan.kbits,
+                            lengths=lengths)
+
+    kernel_ms = time_cuda(torch, call, 20, queued=True)
+    call_ms = time_cuda(torch, call, 20)
+    plain_ms = time_cuda(torch, lambda: port.ax_plain(texts, bp, 2, lengths), 5)
+    P, m = bp.shape
+    # operations: 5 a pattern at every position (first-word mismatches and
+    # merge) in the warps the relaxed LUT lets through, plus the gate's
+    # fingerprint over all nw anchor words and its probe
+    nw = m // 4 + (m % 4 != 0)
+    frac, gate_ops = 1.0, 0
+    if lut is not None:
+        frac = warp_pass_frac(torch, port, engine.build_index(texts, lengths), m, plan.kbits, lut)
+        gate_ops = 3 * nw + 6
+    bound_ms, bound_by = bound_of(B * nb * (P + 1) + P * m + 4 * B,
+                                  B * nb * (gate_ops + frac * P * 5))
+    rows["approx"] = emit({
+        "phase": "timing", "kernel": "approx", "B": B, "n": nb, "P": P, "m": m, "k": 2,
+        "use_lut": lut is not None, "kernel_ms": kernel_ms, "call_ms": call_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "GB_per_s": B * nb * (P + 1) / (kernel_ms * 1e-3) / 1e9})
+    return rows
 
 
 def main() -> int:
@@ -534,6 +1186,16 @@ def main() -> int:
     emit({"phase": "compare-multi", **compared_mp, "equal": True,
           "seconds": round(time.perf_counter() - t0, 3)})
     compared["max_abs_err"]["multipattern"] = compared_mp["max_abs_err"]
+    t0 = time.perf_counter()
+    compared_ms = compare_megascan(torch, np, port, args.seed)
+    emit({"phase": "compare-stream", **compared_ms, "equal": True,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    compared["max_abs_err"]["megascan"] = compared_ms["max_abs_err"]
+    t0 = time.perf_counter()
+    compared_ax = compare_approx(torch, np, port, args.seed)
+    emit({"phase": "compare-approx", **compared_ax, "equal": True,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    compared["max_abs_err"]["approx"] = compared_ax["max_abs_err"]
 
     launches = main_path(torch, np, port, args.seed, GIB, 256 * MIB)
     t0 = time.perf_counter()
@@ -542,8 +1204,21 @@ def main() -> int:
                         "mp_batch": (8, 8 * MIB)})
     emit({"phase": "main-multi", "seconds": round(time.perf_counter() - t0, 3)})
     launches["multipattern"] = multi["launches"]
+    t0 = time.perf_counter()
+    streamed = main_stream(torch, np, port, args.seed,
+                           {"genome": 4 * GIB, "traced": GIB, "kmismatch": 256 * MIB,
+                            "english": 256 * MIB, "protein": 256 * MIB})
+    emit({"phase": "main-stream", "seconds": round(time.perf_counter() - t0, 3)})
+    launches["megascan"] = streamed["launches"]["megascan"]
+    t0 = time.perf_counter()
+    approx = main_approx(torch, np, port, args.seed,
+                         {"protein": 256 * MIB, "english": 64 * MIB, "batch": (8, 8 * MIB)})
+    emit({"phase": "main-approx", "seconds": round(time.perf_counter() - t0, 3)})
+    launches["approx"] = approx["launches"]
     rows = timing(torch, port, args.seed, GIB)
     rows["multipattern"] = timing_multipattern(torch, port, args.seed, 8, 8 * MIB, 32)
+    rows.update(timing_stream_approx(torch, np, port, args.seed, 64 * MIB,
+                                     streamed["window_bytes"], (8, 8 * MIB)))
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
@@ -552,7 +1227,8 @@ def main() -> int:
                         "launches": launches[name],
                         "max_abs_err": compared["max_abs_err"][name], "match": True,
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": None})
+                        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": None})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,8 @@ The twin of the JAX package ``repro``, which stays the reference.  It imports
 torch and numpy only.  Ported so far: ``core.packing``, ``core.epsm``
 (find / count / positions through the EPSMa/b/c CUDA kernels),
 ``core.engine`` and ``core.multipattern`` (P patterns x B texts, with the
-multi-pattern CUDA kernel on the full-mask EPSMb route), ``obs`` and
-``data.corpus``.
+multi-pattern CUDA kernel on the full-mask EPSMb route), ``approx``
+(k-mismatch matching, with the approx CUDA kernel on the full-mask route),
+``core.stream`` (bounded-memory streaming, with the fused megascan CUDA
+kernel), ``obs`` and ``data.corpus``.
 """

@@ -1,9 +1,10 @@
 """Core EPSM library in PyTorch: the parts of ``repro.core`` ported so far.
 
 Ported: ``packing``, the single-pattern EPSM path (``epsm``), the shared-text
-batched engine (``engine``) and the multi-pattern API over it
-(``multipattern``).  Streams, shards and the automaton are still to come
-(ROADMAP.md queue 1).
+batched engine (``engine``, k-mismatch routes included), the multi-pattern
+API over it (``multipattern``) and the bounded-memory streaming scan
+(``stream``).  Shards and the automaton are still to come (ROADMAP.md
+queue 1).
 """
 
 from repro_torch.core.epsm import (
@@ -31,8 +32,16 @@ from repro_torch.core.engine import (
     match_many,
 )
 from repro_torch.core.multipattern import PatternSet, contains_any, count_multi, find_multi
+from repro_torch.core.stream import (
+    Compressed,
+    StreamScanner,
+    auto_chunk_bytes,
+    find_stream,
+    stream_count,
+)
 
 __all__ = [
+    "Compressed",
     "EPSMA_MAX",
     "EPSMB_MAX",
     "EPSMC_BETA",
@@ -40,8 +49,10 @@ __all__ = [
     "FingerprintBank",
     "PatternPlan",
     "PatternSet",
+    "StreamScanner",
     "TextIndex",
     "any_many",
+    "auto_chunk_bytes",
     "build_index",
     "compile_patterns",
     "contains_any",
@@ -53,8 +64,10 @@ __all__ = [
     "epsmc",
     "find",
     "find_multi",
+    "find_stream",
     "match_many",
     "positions",
     "select_algo",
     "select_algo_tuned",
+    "stream_count",
 ]

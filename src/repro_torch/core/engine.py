@@ -21,11 +21,12 @@ in-range indices.  PyTorch runs eagerly, so there is no ``match_many_jit``.
 
 On a CUDA index the full-mask EPSMb route (``_match_group_b``) runs the
 hand-written ``multipattern`` kernel; on a CPU index it runs ``_dense_b``,
-the same compare in plain PyTorch.
+the same compare in plain PyTorch.  Groups with a mismatch budget k > 0 go
+to the k-mismatch routes of ``repro_torch.approx.counting``, whose full-mask
+route runs the ``approx`` kernel on a CUDA index.
 
-Still to be ported, each raising ``NotImplementedError``: ``k > 0`` (the
-k-mismatch routes, ROADMAP queue 1 item 7) and the packed Aho-Corasick
-automaton fallback (item 8).
+Still to be ported, raising ``NotImplementedError``: the packed Aho-Corasick
+automaton fallback (ROADMAP queue 1 item 8).
 
 Dtype rule (``core/packing.py``): packed words and fingerprints are carried
 as int32 bits; plan arrays that are uint32 or uint16 in the reference are
@@ -73,10 +74,6 @@ SPARSE_B_MIN_ELEMS = 8_000_000
 _LOG = logging.getLogger("repro_torch.engine")
 _DEFAULT_REC = Recorder(enabled=False, fence=False, sinks=(logging_sink(_LOG),))
 
-_NOT_APPROX = (
-    "k > 0 (k-mismatch matching) waits for the port of approx/ "
-    "(ROADMAP queue 1 item 7)"
-)
 _NOT_AUTOMATON = (
     "the Aho-Corasick automaton fallback waits for the port of "
     "core/automaton.py (ROADMAP queue 1 item 8)"
@@ -235,8 +232,8 @@ class FingerprintBank:
 class PatternPlan:
     """Compiled matcher state for one equal-length pattern group.
 
-    The reference's fields, as tensors on one device.  The automaton and
-    relaxed-LUT fields are absent: those routes are not ported yet.
+    The reference's fields, as tensors on one device.  The automaton field
+    is absent: that route is not ported yet.
     """
 
     m: int                   # pattern length
@@ -249,7 +246,9 @@ class PatternPlan:
     lut_pid: Optional[torch.Tensor] = None   # (2^kbits,) int32 pattern ids (EPSMb)
     lut_bits: Optional[torch.Tensor] = None  # (2^kbits, ceil(P/32)) int32 bitmask (EPSMc)
     hp: Optional[torch.Tensor] = None        # (P, stride) int32 block fps (EPSMc)
-    k: int = 0               # mismatch budget: always 0 in this port so far
+    k: int = 0               # mismatch budget the plan was compiled for
+    relaxed_lut: Optional[torch.Tensor] = None  # (2^kbits,) bool <=k-reachable fps
+    relaxed_bits: int = 0    # set-bit count of relaxed_lut (budgeting)
     bbits: int = 0           # widening over ENGINE_KBITS (0 = flat)
     lut_pop: int = 0         # union-LUT popcount (budget heuristics)
     slot_max: int = 0        # max CSR slot occupancy (verify bound)
@@ -280,7 +279,8 @@ class PatternPlan:
 
 TENSOR_FIELDS = tuple(
     f.name for f in dataclasses.fields(PatternPlan)
-    if f.name not in ("m", "kbits", "ids", "distinct", "k", "bbits", "lut_pop", "slot_max")
+    if f.name not in ("m", "kbits", "ids", "distinct", "k", "relaxed_bits", "bbits", "lut_pop",
+                      "slot_max")
 )
 
 
@@ -302,10 +302,10 @@ def plan_from_numpy(fields: dict, *, device=None) -> PatternPlan:
 
     ``fields`` maps each reference field name to its numpy array (array
     fields) or Python value (static fields), e.g. from ``jax.device_get`` of
-    the reference plan.  Fields of routes not ported yet must be None or 0.
+    the reference plan, k-mismatch plans (``k``, ``relaxed_lut``,
+    ``relaxed_bits``) included.  The automaton field, whose route is not
+    ported yet, must be None.
     """
-    if fields.get("k", 0) or fields.get("relaxed_lut") is not None:
-        raise NotImplementedError(_NOT_APPROX)
     if fields.get("automaton") is not None:
         raise NotImplementedError(_NOT_AUTOMATON)
     dev = resolve_device(device)
@@ -314,7 +314,8 @@ def plan_from_numpy(fields: dict, *, device=None) -> PatternPlan:
         kbits=int(fields["kbits"]),
         ids=tuple(int(i) for i in fields["ids"]),
         distinct=bool(fields["distinct"]),
-        k=0,
+        k=int(fields.get("k", 0)),
+        relaxed_bits=int(fields.get("relaxed_bits", 0)),
         bbits=int(fields.get("bbits", 0)),
         lut_pop=int(fields.get("lut_pop", 0)),
         slot_max=int(fields.get("slot_max", 0)),
@@ -350,15 +351,15 @@ def compile_patterns(
     Same contract as ``repro.core.engine.compile_patterns`` (plans sorted by
     m, ``ids`` mapping rows back to input positions, ``bucket`` /
     ``canonical`` as there), built on the host in numpy and placed on
-    ``device`` (default: the card).  ``k > 0`` raises, and so does every
-    case where the reference would build the automaton fallback
-    (``automaton=True``, or ``"auto"`` at AUTOMATON_MIN_P or more patterns,
-    whenever a group is a bucketed EPSMb plan): neither route is ported yet.
+    ``device`` (default: the card).  ``k > 0`` additionally fills the
+    relaxed fingerprint LUT of every <= k-reachable window fingerprint
+    (``repro_torch.approx.relaxed``).  Every case where the reference would
+    build the automaton fallback raises (``automaton=True``, or ``"auto"``
+    at AUTOMATON_MIN_P or more patterns, whenever a group is a bucketed
+    EPSMb plan): that route is not ported yet.
     """
     if k < 0:
         raise ValueError("mismatch budget k must be >= 0")
-    if k > 0:
-        raise NotImplementedError(_NOT_APPROX)
     if bucket not in (True, False, "auto"):
         raise ValueError("bucket must be True, False, or 'auto'")
     if automaton not in (True, False, "auto"):
@@ -444,12 +445,22 @@ def compile_patterns(
                         lut_bits[hp[p_i], p_i // 32] |= np.uint32(1 << (p_i % 32))
                     arrays["lut_bits"] = lut_bits
             lut_pop = int(lut_any.sum())
+            relaxed = None
+            relaxed_bits = 0
+            if k > 0:
+                from repro_torch.approx.relaxed import relaxed_window_lut
+
+                relaxed = relaxed_window_lut(pats, kbits=kb, k=k)
+                if relaxed is not None:
+                    relaxed_bits = int(relaxed.sum())
             if canonical:
                 # pow2-round the budget/bound statics; slot_max is clamped to
                 # the plan's TOTAL entry count (an EPSMc slot can exceed P)
                 lut_pop = min(1 << kb, _pow2_ceil(max(1, lut_pop)))
                 if slot_max:
                     slot_max = min(slot_cap, _pow2_ceil(slot_max))
+                if relaxed_bits:
+                    relaxed_bits = min(1 << kb, _pow2_ceil(relaxed_bits))
             rec.event(
                 "plan_group", m=m, n_patterns=P, bucketed=int(bucketed),
                 bbits=bbits, kbits=kb, lut_pop=lut_pop, slot_max=slot_max,
@@ -463,6 +474,7 @@ def compile_patterns(
                     patterns=_to_tensor(pats, dev),
                     anchors=_to_tensor(anchors, dev),
                     lut_any=_to_tensor(lut_any, dev),
+                    k=k, relaxed_lut=_to_tensor(relaxed, dev), relaxed_bits=relaxed_bits,
                     bbits=bbits, lut_pop=lut_pop, slot_max=slot_max,
                     **{name: _to_tensor(a, dev) for name, a in arrays.items()},
                 )
@@ -1102,11 +1114,9 @@ _COUNT = {"a": _count_group_a, "b": _count_group_b, "c": _count_group_c}
 # ---------------------------------------------------------------------------
 
 def _effective_k(plan: PatternPlan, k: Optional[int]) -> int:
-    """Per-plan mismatch budget; only k = 0 is ported."""
-    kk = plan.k if k is None else int(k)
-    if kk:
-        raise NotImplementedError(_NOT_APPROX)
-    return kk
+    """Per-plan mismatch budget: an explicit k overrides; None means what
+    the plan was compiled for (0 for exact plans)."""
+    return plan.k if k is None else int(k)
 
 
 def _check_devices(index: TextIndex, plans: Sequence[PatternPlan]) -> None:
@@ -1121,16 +1131,23 @@ def _check_devices(index: TextIndex, plans: Sequence[PatternPlan]) -> None:
 def match_many(index: TextIndex, plans: Sequence[PatternPlan], *, k: Optional[int] = None,
                end_min: Optional[int] = None) -> torch.Tensor:
     """bool[B, P_total, n] match-start masks, rows in plan-concatenated order
-    (``plan_order`` maps them back).  ``end_min`` keeps only occurrences
-    ending at position >= end_min (the streaming seam gate)."""
+    (``plan_order`` maps them back).  ``k`` is the mismatch budget: mask[b,
+    p, i] is True iff the m-byte window at i differs from pattern p in at
+    most k bytes (k = 0 runs the exact matchers).  ``end_min`` keeps only
+    occurrences ending at position >= end_min (the streaming seam gate)."""
     if not plans:
         return torch.zeros((index.batch, 0, index.n), dtype=torch.bool, device=index.device)
     _check_devices(index, plans)
     bank = FingerprintBank(index.packed)
     outs = []
     for p in plans:
-        _effective_k(p, k)
-        outs.append(_MATCH[p.regime](index, p, bank, end_min))
+        kk = _effective_k(p, k)
+        if kk == 0:
+            outs.append(_MATCH[p.regime](index, p, bank, end_min))
+        else:
+            from repro_torch.approx import counting
+
+            outs.append(counting.match_group_approx(index, p, kk, end_min))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
@@ -1147,7 +1164,9 @@ def count_many(index: TextIndex, plans: Sequence[PatternPlan], *, k: Optional[in
     """int32[B, P_total] occurrence counts, never materializing (B, P, n) on
     the sparse routes.  Every sparse-eligible EPSMb group shares one
     candidate compaction (even a single one); ``shared=False`` counts each
-    group through its own matcher, the per-group reference path."""
+    group through its own matcher, the per-group reference path.  ``k`` as
+    in :func:`match_many`; the k > 0 dense path builds the (B, P, n)
+    mismatch mask before reducing."""
     if not plans:
         return torch.zeros((index.batch, 0), dtype=torch.int32, device=index.device)
     _check_devices(index, plans)
@@ -1163,8 +1182,13 @@ def count_many(index: TextIndex, plans: Sequence[PatternPlan], *, k: Optional[in
             col += P
     for i, p in enumerate(plans):
         if outs[i] is None:
-            _effective_k(p, k)
-            outs[i] = _COUNT[p.regime](index, p, bank, end_min)
+            kk = _effective_k(p, k)
+            if kk == 0:
+                outs[i] = _COUNT[p.regime](index, p, bank, end_min)
+            else:
+                from repro_torch.approx import counting
+
+                outs[i] = counting.count_group_approx(index, p, kk, bank, end_min)
     return torch.cat(outs, dim=1)
 
 

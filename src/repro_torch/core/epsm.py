@@ -13,6 +13,8 @@ of ``pattern`` starts at text position i.  On a CUDA tensor each algorithm
 launches its hand-written kernel (``repro_torch.kernels.<algo>``); on a CPU
 tensor it runs that kernel's plain PyTorch version.  Host inputs go to the
 card unless ``device="cpu"`` is passed (``packing.resolve_device``).
+``k > 0`` (k-mismatch search) goes through the engine's approximate routes
+(``repro_torch.approx``), and ``stream`` through ``core/stream.py``.
 
 The kernels are imported inside the functions: they take ``EPSMC_BETA`` and
 ``_epsmc_stride`` from this module, and importing this module needs no
@@ -133,34 +135,38 @@ def _host_bytes(text) -> int:
     return 0
 
 
-def _check_deferred(text, algo: str, stream: Optional[bool]) -> None:
+def _streams(text, algo: str, stream: Optional[bool]) -> bool:
+    """``stream``, or under None the auto rule: host texts of
+    STREAM_AUTO_BYTES or more stream under the default regime dispatch."""
     if stream is None:
-        stream = algo == "auto" and _host_bytes(text) >= STREAM_AUTO_BYTES
-    if stream:
-        raise NotImplementedError(
-            "streaming (stream=True, or a host text of STREAM_AUTO_BYTES or "
-            "more under algo='auto') waits for the port of core/stream.py "
-            "(ROADMAP queue 1 item 6)"
-        )
+        return algo == "auto" and _host_bytes(text) >= STREAM_AUTO_BYTES
+    return bool(stream)
 
 
 def find(text, pattern, *, algo: str = "auto", k: int = 0,
-         stream: Optional[bool] = None, device=None) -> torch.Tensor:
+         stream: Optional[bool] = None, device=None):
     """Match-start mask for all occurrences of pattern in text.
 
-    Same contract as ``repro.core.epsm.find`` at k = 0 without streaming;
-    ``device`` places host inputs (default: the card).
+    Same contract as ``repro.core.epsm.find``; ``device`` places host inputs
+    (default: the card).  ``k`` is a Hamming mismatch budget: k > 0 reports
+    every position whose m-byte window differs from the pattern in at most
+    k bytes (``algo`` is ignored).  ``stream`` scans the text chunk by chunk
+    in O(chunk) device memory and returns a HOST numpy bool mask (``algo``
+    is ignored); None streams host texts of STREAM_AUTO_BYTES or more under
+    ``algo="auto"`` only.  Results are identical to the resident scan.
     """
-    _check_deferred(text, algo, stream)
+    if _streams(text, algo, stream):
+        from repro_torch.core.stream import find_stream
+
+        return find_stream(text, pattern, k=k, device=device)
     t, p = _to_tensors(text, pattern, device)
     m = p.shape[0]
     if m == 0:
         raise ValueError("empty pattern")
     if k:
-        raise NotImplementedError(
-            "k > 0 (k-mismatch search) waits for the port of approx/ "
-            "(ROADMAP queue 1 item 7)"
-        )
+        from repro_torch.approx import find_kmismatch
+
+        return find_kmismatch(t, p, k)
     if algo == "auto":
         name = select_algo(m)
     elif algo == "tuned":
@@ -175,10 +181,15 @@ def find(text, pattern, *, algo: str = "auto", k: int = 0,
 
 
 def count(text, pattern, *, algo: str = "auto", k: int = 0,
-          stream: Optional[bool] = None, device=None) -> torch.Tensor:
+          stream: Optional[bool] = None, device=None):
     """Occurrence count: a 0-d int32 tensor on the text's device, as the
-    reference's ``count`` returns."""
-    mask = find(text, pattern, algo=algo, k=k, stream=stream, device=device)
+    reference's ``count`` returns; with ``stream`` a numpy int32 from the
+    streaming counts, which never materialize a whole-text mask."""
+    if _streams(text, algo, stream):
+        from repro_torch.core.stream import stream_count
+
+        return stream_count(text, [pattern], k=k, device=device)[0]
+    mask = find(text, pattern, algo=algo, k=k, stream=False, device=device)
     return mask.sum(dtype=torch.int32)
 
 
@@ -186,4 +197,6 @@ def positions(text, pattern, *, algo: str = "auto", k: int = 0,
               stream: Optional[bool] = None, device=None) -> np.ndarray:
     """Occurrence start positions as a host int64 array (forces a sync)."""
     mask = find(text, pattern, algo=algo, k=k, stream=stream, device=device)
+    if isinstance(mask, np.ndarray):  # the streaming path's host mask
+        return np.nonzero(mask)[0]
     return torch.nonzero(mask).flatten().cpu().numpy()

@@ -1,5 +1,6 @@
-// Shared pieces of the EPSM kernels: tile staging, windowed byte reads with a
-// global-memory fallback, packed 4-byte reads and 16-byte mask stores.
+// Shared pieces of the kernels: tile staging, windowed byte reads with a
+// global-memory fallback, packed 4-byte reads, 16-byte mask stores, the
+// fingerprint salts and the k-mismatch count.
 //
 // Layout shared by the three kernels: one block of THREADS threads owns a
 // tile of TILE consecutive start positions [base, base + TILE).  It stages
@@ -128,6 +129,49 @@ __device__ inline void clear_past(uint32_t r[4], long long pos0, long long last)
 #pragma unroll
   for (int k = 0; k < 16; ++k)
     if (pos0 + k > last) r[k >> 2] &= ~(0xFFu << (8 * (k & 3)));
+}
+
+// The engine's fingerprint salts, one per anchor word (packing.WORD_SALTS).
+constexpr int MAX_SALTS = 8;
+
+struct Salts {
+  uint32_t s[MAX_SALTS];
+};
+
+// Little-endian 4-gram at shared offset `local` (local + 8 <= staged bytes).
+__device__ inline uint32_t gram(const uint8_t* s, int local) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(s) + (local >> 2);
+  return __funnelshift_r(w[0], w[1], 8 * (unsigned)(local & 3));
+}
+
+// The i-th offset of _word_offsets(m): 4i for the m/4 strided words, then
+// m - 4 for the overlapping tail word when m % 4 != 0.
+__device__ inline int word_offset(int i, int m) { return i < m / 4 ? 4 * i : m - 4; }
+
+// Number of differing bytes of two packed words: __vcmpne4 sets 0xFF in each
+// byte lane that differs, 8 bits a byte.
+__device__ inline int mism4(uint32_t a, uint32_t b) { return __popc(__vcmpne4(a, b)) >> 3; }
+
+// Mismatches of the window whose first 4-gram is g against the first packed
+// word a0 of a pattern (its first byte when m < 4).
+__device__ inline int first_mismatches(uint32_t g, uint32_t a0, int m) {
+  return m >= 4 ? mism4(g, a0) : (int)((g & 0xFFu) != a0);
+}
+
+// Hamming distance of an m-byte window to a pattern, stopped once past k:
+// first_mismatches, then the other m/4 - 1 strided words (ap: the packed
+// anchor words; the overlapping tail word would double-count), then the
+// m % 4 tail bytes (pp: the pattern's bytes).  gram4(j) and byte(j) read the
+// window at offset j.
+template <class Gram4, class Byte>
+__device__ inline int mismatches(uint32_t g, uint32_t a0, int m, int k,
+                                 const uint32_t* __restrict__ ap, const uint8_t* __restrict__ pp,
+                                 Gram4 gram4, Byte byte) {
+  const int nsw = m / 4;
+  int mm = first_mismatches(g, a0, m);
+  for (int i = 1; i < nsw && mm <= k; ++i) mm += mism4(gram4(4 * i), __ldg(ap + i));
+  for (int j = nsw ? 4 * nsw : 1; j < m && mm <= k; ++j) mm += byte(j) != __ldg(pp + j);
+  return mm;
 }
 
 // Number of TILE-position blocks covering n, or -1 if it exceeds the grid.

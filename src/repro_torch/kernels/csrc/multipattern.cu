@@ -38,22 +38,6 @@
 
 using namespace epsm;
 
-constexpr int MAX_SALTS = 8;
-
-struct Salts {
-  uint32_t s[MAX_SALTS];
-};
-
-// Little-endian 4-gram at shared offset `local` (local + 8 <= staged bytes).
-__device__ inline uint32_t gram(const uint8_t* s, int local) {
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(s) + (local >> 2);
-  return __funnelshift_r(w[0], w[1], 8 * (unsigned)(local & 3));
-}
-
-// The i-th offset of _word_offsets(m): 4i for the m/4 strided words, then
-// m - 4 for the overlapping tail word when m % 4 != 0.
-__device__ inline int word_offset(int i, int m) { return i < m / 4 ? 4 * i : m - 4; }
-
 // The 16 mask bytes of one pattern at the thread's 16 positions: the first
 // anchor word against the 16 precomputed 4-grams, the other words only at hits.
 __device__ inline void match16(const uint8_t* s, int loc, const uint32_t g[PER_THREAD],

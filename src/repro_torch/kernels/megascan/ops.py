@@ -1,0 +1,154 @@
+"""Megakernel dispatch layer: static group specs, the card's eligibility
+rule, and the op that turns (window, plans, k, prev_ov) into one launch.
+
+``build_mega_spec`` walks a plan set ONCE and decides, per length group,
+which in-kernel matcher answers it ('a'/'b'/'c' exact, 'x' k-mismatch) and
+whether the whole set is eligible for ``csrc/megascan.cu``.  Ineligible sets
+return None and the caller (core/stream.py) keeps the pure-PyTorch fused
+path: a static decision, logged, never a different result.  A failed build
+or launch raises; it is never a reason to fall back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.engine import PatternPlan, _effective_k
+from repro_torch.core.epsm import EPSMC_BETA, _epsmc_stride
+from repro_torch.core.packing import PACK
+from repro_torch.kernels import _build
+from repro_torch.kernels.megascan.megascan import STAGED, TILE, megascan_cuda
+from repro_torch.kernels.megascan.ref import megascan_count_window_ref
+
+# Shared memory one block of an H100 may use (232,448 bytes of the SM's
+# 256 KB): the kernel keeps its staged tiles and one int32 counter per
+# pattern there.
+SMEM_BUDGET = 227 * 1024
+# Per-group pattern ceiling: the in-kernel verify walks all P rows of a
+# candidate, so dictionary-scale groups belong on the engine's bounded CSR
+# routes, as in the reference.
+MEGA_P_MAX = 512
+# The int8 accumulator clamp ceiling of the reference kernel.
+K_MAX = 127
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    """Static per-group kernel plan (hashable)."""
+
+    kind: str        # 'a' | 'b' | 'c' | 'x'
+    m: int
+    n_patterns: int
+    kbits: int
+    col: int         # first output column (plan-concatenated order)
+    k: int = 0       # mismatch budget ('x' only)
+    use_lut: bool = False   # 'x': relaxed-LUT gate available
+    stride: int = 0  # 'c' only
+    noff_used: int = 0  # 'c' only
+
+
+@dataclasses.dataclass(frozen=True)
+class MegaSpec:
+    """Static kernel configuration for one (plans, k) combination."""
+
+    groups: Tuple[GroupSpec, ...]
+    p_total: int
+    tile: int
+    beta: int
+    smem_bytes: int   # the kernel's dynamic shared memory per block
+    k: Optional[int] = None  # the budget override the spec was built for
+
+
+def build_mega_spec(plans: Sequence[PatternPlan], *, k: Optional[int] = None) -> Optional[MegaSpec]:
+    """Static spec for the fused kernel, or None when the set is ineligible.
+
+    The card's rule: the reference's halo and verify rules, with its VMEM
+    budget replaced by what the CUDA kernel keeps in shared memory.
+
+      * every group needs m <= 4096 - 3, so a packed word at any offset of a
+        window starting in the tile stays inside the staged prev|cur|next
+        tiles;
+      * EPSMc groups need stride + m <= 4096, so a candidate window (start
+        reaching back < stride, body m past the owned block) never escapes
+        the halo; bucketed EPSMc plans (CSR payloads, no lut_bits) are
+        ineligible;
+      * at most MEGA_P_MAX = 512 patterns a group;
+      * k <= 127 (the reference's int8 clamp ceiling); k > 0 groups ('x')
+        use the relaxed-LUT gate only when the plan was compiled for >= k
+        and m >= 4;
+      * the staged bytes (3 * 4096 + 16) plus one int32 counter per pattern
+        fit the 227 KB of shared memory a block may use.
+    """
+    if not plans:
+        return None
+    groups = []
+    col = 0
+    beta = EPSMC_BETA
+    for plan in plans:
+        kk = _effective_k(plan, k)
+        P, m = plan.n_patterns, plan.m
+        if m > TILE - PACK + 1 or P > MEGA_P_MAX:
+            return None
+        if plan.regime == "c" and kk == 0 and plan.lut_bits is None:
+            return None  # bucketed EPSMc: CSR payloads, not the lut_bits bitmask
+        if kk > 0:
+            if kk > K_MAX:
+                return None
+            use_lut = plan.relaxed_lut is not None and kk <= plan.k and m >= PACK
+            groups.append(GroupSpec(kind="x", m=m, n_patterns=P, kbits=plan.kbits, col=col,
+                                    k=kk, use_lut=use_lut))
+        elif plan.regime == "a":
+            groups.append(GroupSpec(kind="a", m=m, n_patterns=P, kbits=0, col=col))
+        elif plan.regime == "b":
+            groups.append(GroupSpec(kind="b", m=m, n_patterns=P, kbits=plan.kbits, col=col))
+        else:
+            stride = _epsmc_stride(m, beta)
+            if stride + m > TILE:
+                return None
+            groups.append(GroupSpec(kind="c", m=m, n_patterns=P, kbits=plan.kbits, col=col,
+                                    stride=stride, noff_used=min(stride, m - beta + 1)))
+        col += P
+    smem = STAGED + 4 * col
+    if smem > SMEM_BUDGET:
+        return None
+    return MegaSpec(groups=tuple(groups), p_total=col, tile=TILE, beta=beta, smem_bytes=smem, k=k)
+
+
+def megascan_count_window(
+    window: torch.Tensor,
+    plans: Sequence[PatternPlan],
+    spec: MegaSpec,
+    *,
+    length: Optional[int] = None,
+    prev_ov: int = 0,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(P_total,) int32 counts of one streaming window through the fused
+    kernel — plan-concatenated order, bit-identical to the engine's counts
+    over ``build_index(window, [length])`` with ``end_min=prev_ov`` in plain
+    PyTorch (``megascan_count_window_ref``).
+
+    The counts are added into ``out`` when given (the stream's device
+    accumulator), else into a new zero tensor.  A CUDA window launches the
+    kernel; a CPU window runs the plain version.
+    """
+    if window.ndim != 1 or window.dtype != torch.uint8:
+        raise ValueError("megascan: window must be a 1-D uint8 tensor")
+    n = window.shape[0]
+    length = n if length is None else int(length)
+    if out is None:
+        out = torch.zeros((spec.p_total,), dtype=torch.int32, device=window.device)
+
+    def kernel(window):
+        return megascan_cuda(window.contiguous(), plans, spec, length=length,
+                             prev_ov=int(prev_ov), out=out)
+
+    def plain(window):
+        out.add_(megascan_count_window_ref(window, plans, k=spec.k, length=length,
+                                           prev_ov=int(prev_ov)))
+        return out
+
+    return _build.on_device(window, kernel, plain)(window)

@@ -36,7 +36,9 @@ def test_no_jax_or_reference_imports(path):
 def test_import_leaves_jax_out():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.core.epsm, "
-        "repro_torch.kernels.epsmc.ops, repro_torch.kernels.multipattern.ops, repro_torch.obs; "
+        "repro_torch.kernels.epsmc.ops, repro_torch.kernels.multipattern.ops, repro_torch.obs, "
+        "repro_torch.core.stream, repro_torch.approx, repro_torch.kernels.megascan.ops, "
+        "repro_torch.kernels.approx.ops; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

@@ -58,7 +58,8 @@ def _np(x):
 def _ref_fields(plan) -> dict:
     """A reference plan's fields as host values (the device_get side)."""
     d = {f: getattr(plan, f) for f in (
-        "m", "kbits", "ids", "distinct", "k", "bbits", "lut_pop", "slot_max", "automaton")}
+        "m", "kbits", "ids", "distinct", "k", "relaxed_bits", "bbits", "lut_pop", "slot_max",
+        "automaton")}
     for f in E.TENSOR_FIELDS + ("relaxed_lut",):
         v = getattr(plan, f)
         d[f] = None if v is None else np.asarray(jax.device_get(v))
@@ -216,14 +217,19 @@ def test_plan_from_numpy_refuses_unported_routes(rng):
     assert plan.automaton is not None
     with pytest.raises(NotImplementedError, match="item 8"):
         E.plan_from_numpy(_ref_fields(plan), device=CPU)
-    (plan,) = R.compile_patterns([b"abcdefgh"], k=1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        E.plan_from_numpy(_ref_fields(plan), device=CPU)
+    # a k-mismatch plan carries its relaxed LUT over and answers as the reference
+    ref_plans = R.compile_patterns([b"abcdefgh", b"abcdxfgh"], k=1)
+    (plan,) = (E.plan_from_numpy(_ref_fields(p), device=CPU) for p in ref_plans)
+    assert plan.k == 1 and plan.relaxed_bits == ref_plans[0].relaxed_bits
+    np.testing.assert_array_equal(plan.relaxed_lut.numpy(), np.asarray(ref_plans[0].relaxed_lut))
+    t = np.frombuffer(b"xxabcdefghyyabcdzfghzzabzdefgh", np.uint8)
+    np.testing.assert_array_equal(E.count_many(E.build_index(t, device=CPU), (plan,)).numpy(),
+                                  np.asarray(R.count_many_jit(R.build_index(t), ref_plans)))
 
 
 def test_unported_routes_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        E.compile_patterns([b"abcd"], k=1, device=CPU)
+    (fuzzy,) = E.compile_patterns([b"abcd"], k=1, device=CPU)  # k > 0 is ported now
+    assert fuzzy.k == 1 and fuzzy.relaxed_lut is not None
     with pytest.raises(NotImplementedError, match="item 8"):
         E.compile_patterns([b"abcdefgh"] * 4, bucket=True, automaton=True, device=CPU)
     # "auto" builds the automaton only with a bucketed EPSMb group
@@ -233,8 +239,9 @@ def test_unported_routes_raise():
         E.compile_patterns([p[:8] for p in pats], device=CPU)
     (plan,) = E.compile_patterns([b"abcd"], device=CPU)
     idx = E.build_index(b"xxabcd", device=CPU)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        E.count_many(idx, (plan,), k=1)
+    (ref,) = R.compile_patterns([b"abcd"])
+    np.testing.assert_array_equal(E.count_many(idx, (plan,), k=1).numpy(),
+                                  np.asarray(R.count_many_jit(R.build_index(b"xxabcd"), (ref,), k=1)))
 
 
 def test_plan_order_and_replicate(rng):

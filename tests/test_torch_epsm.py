@@ -113,7 +113,10 @@ def test_count_positions_match_reference_functions(m):
     np.testing.assert_array_equal(P.positions(t, p, device="cpu"), R.positions(t, p))
 
 
-def test_errors_and_deferred_paths():
+def test_errors_and_deferred_paths(monkeypatch):
+    """Errors raise in both packages; the once-deferred paths (k > 0,
+    stream=True, the auto-stream of host texts) give the reference's
+    answers."""
     t = _text(100, 4, seed=0)
     for mod in (R, P):
         kw = {"device": "cpu"} if mod is P else {}
@@ -121,19 +124,21 @@ def test_errors_and_deferred_paths():
             mod.find(t, b"", **kw)
         with pytest.raises(ValueError, match="unknown algo"):
             mod.find(t, b"ab", algo="kmp", **kw)
-    with pytest.raises(NotImplementedError, match="approx"):
-        P.find(t, b"ab", k=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="stream"):
-        P.find(t, b"ab", stream=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="stream"):
-        P.count(t, b"ab", stream=True, device="cpu")
-    big = bytes(P.STREAM_AUTO_BYTES)
-    with pytest.raises(NotImplementedError, match="stream"):
-        P.find(big, b"\x00", device="cpu")  # the reference would auto-stream here
+    np.testing.assert_array_equal(P.find(t, b"ab", k=1, device="cpu").numpy(),
+                                  np.asarray(R.find(t, b"ab", k=1)))
+    np.testing.assert_array_equal(P.find(t, b"\x01\x02", stream=True, device="cpu"),
+                                  np.asarray(R.find(t, b"\x01\x02", stream=True)))
+    assert int(P.count(t, b"\x01\x02", stream=True, device="cpu")) == int(
+        R.count(t, b"\x01\x02", stream=True))
+    monkeypatch.setattr(P, "STREAM_AUTO_BYTES", 64)
+    auto = P.find(t.tobytes(), b"\x00", device="cpu")  # the reference would auto-stream here
+    assert isinstance(auto, np.ndarray)
+    np.testing.assert_array_equal(auto, np.asarray(R.find(t, b"\x00")))
     # an explicit algo, or a tensor, never auto-streams
+    big = bytes(128)
     assert int(P.count(big[:-1] + b"\x01", b"\x01", algo="epsma", device="cpu")) == 1
-    tensor = torch.zeros(P.STREAM_AUTO_BYTES, dtype=torch.uint8)
-    assert int(P.count(tensor, b"\x00\x00\x00\x00\x00", device="cpu")) == P.STREAM_AUTO_BYTES - 4
+    tensor = torch.zeros(128, dtype=torch.uint8)
+    assert int(P.count(tensor, b"\x00\x00\x00\x00\x00", device="cpu")) == 128 - 4
 
 
 def test_constants_and_dispatch_match_reference():

@@ -237,11 +237,15 @@ def test_patternset_dictionary_passthrough(rng):
 
 
 def test_patternset_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MP.PatternSet([b"abcd"], k=1, device=CPU)
+    """k > 0 sets and contains_any_stream, once deferred, answer as the
+    reference; an empty set still raises."""
+    fuzzy = MP.PatternSet([b"abcd"], k=1, device=CPU)
+    assert fuzzy.k == 1 and bool(fuzzy.contains_any(b"xxabzd"))
+    assert bool(fuzzy.contains_any(b"xxabzd")) == bool(R_mp.PatternSet([b"abcd"], k=1).contains_any(b"xxabzd"))
     ps = MP.PatternSet([b"abcd"], device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ps.contains_any_stream([b"xxabcd"])
+    for src in ([b"xxab", b"cd"], [b"xxabzd"]):
+        assert ps.contains_any_stream(src) == R_mp.PatternSet([b"abcd"]).contains_any_stream(src)
+    assert fuzzy.contains_any_stream([b"xxab", b"zd"])
     with pytest.raises(ValueError):
         MP.PatternSet([], device=CPU)
 

@@ -8,7 +8,7 @@ Run from the repository root, with one card and no arguments:
 Phases, one JSON line each (more for main-multi and main-stream):
 
   env           torch / CUDA versions and the card's name and power limit;
-  build         nvcc builds the six kernels from src/repro_torch/kernels/csrc,
+  build         nvcc builds the seven kernels from src/repro_torch/kernels/csrc,
                 one nvcc per source, all at once;
   compare       each EPSM kernel's wrapper against its plain PyTorch version on
                 the card, bit for bit (torch.equal on the whole mask: the
@@ -27,6 +27,12 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 LUT gate on and off, flood, trailing 0x00, ragged lengths,
                 70000 rows, an unaligned row view, and end_min through the
                 engine's k-mismatch mask route;
+  compare-automaton the acscan kernel against its plain version: automaton
+                states of tables in shared memory (genome, 2048 patterns), in
+                L2 (english, 8192) and in HBM (random m = 8, 10,000), placements
+                forced where they fit, a dictionary holding byte 0x00,
+                max_m = 2000, n from 1 to 1 MiB + 7 around the segment widths,
+                ragged rows, and count_automaton with end_min;
   main          epsm.find / count / positions with algo="auto" on device texts of
                 1 GiB genome, 256 MiB protein and 256 MiB english, with the kernels'
                 launch counters set to 0 just before and read just after;
@@ -49,11 +55,27 @@ Phases, one JSON line each (more for main-multi and main-stream):
   main-approx   epsm.find(k=) on 256 MiB protein, PatternSet(k=1).count_each on
                 64 MiB english and approx_batched on an (8, 8 MiB) batch, each
                 against the plain version on the card;
+  main-dict     dictionary-scale counting at 256 MiB: PatternSet.count_each and
+                blocked (4096 x 65536 ragged) with 8192 english patterns,
+                benchmarks/run.py's bench_dictionary (m = 8) at 10,000 and
+                50,000 patterns on its average and adversarial textures, and
+                stream_count of the english set over 1 GiB of host memory
+                (megascan turns it away; the automaton takes every window);
+                acscan launches held equal to the automaton routes taken, and
+                counts to automaton=False plans on a 16 MiB slice and epsm.count;
+  main-serve    a GrepServer on 127.0.0.1 over a QueryPlane on the card: a
+                256 MiB english corpus, a 1 MiB one sent over the wire, 8
+                connections sending 71 count, dictionary-scale any / count
+                and match queries at once, each answer held against
+                count_each alone, and the service trace through
+                benchmarks/validate_trace.py;
   timing        median kernel times (CUDA events, queued behind a device sleep
                 so they exclude the wrapper's host time) beside the plain
                 versions' times and the bounds, and the times of epsm.find and
                 epsm.count around the EPSM kernels; megascan at the stream's
-                window (the kernels line) and on one 64 MiB window.
+                window (the kernels line) and on one 64 MiB window; acscan
+                over 256 MiB with the english 8192-pattern table (the kernels
+                line) and the genome 2048-pattern table in shared memory.
 
 Then one line {"kernels": [...]}, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.  Any failed
@@ -66,6 +88,7 @@ from __future__ import annotations
 import argparse
 import gzip
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -81,6 +104,7 @@ DEVICE = "cuda"
 MAIN_LENGTHS = (2, 3, 4, 8, 12, 16, 24, 32, 64)
 PATTERNS_PER_LENGTH = 16
 STREAM_LENGTHS = (3, 6, 8, 12, 16, 24, 32)  # 'a', three 'b' and three 'c' groups
+DICT_LENGTHS = tuple(range(4, 16))  # the dictionary phases' pattern lengths (EPSMb)
 KERNEL_SOURCES = {
     "epsma": ("src/repro_torch/kernels/csrc/epsma.cu", "src/repro/kernels/epsma/epsma.py:28"),
     "epsmb": ("src/repro_torch/kernels/csrc/epsmb.cu", "src/repro/kernels/epsmb/epsmb.py:43"),
@@ -90,6 +114,7 @@ KERNEL_SOURCES = {
     "megascan": ("src/repro_torch/kernels/csrc/megascan.cu",
                  "src/repro/kernels/megascan/megascan.py:81"),
     "approx": ("src/repro_torch/kernels/csrc/approx.cu", "src/repro/kernels/approx/approx.py:55"),
+    "acscan": ("src/repro_torch/kernels/csrc/acscan.cu", "src/repro/kernels/acscan/acscan.py:36"),
 }
 # H100 SXM integer rate on the CUDA cores (NVIDIA H100 whitepaper): 132 SMs x
 # 64 INT32 lanes a clock x 1.98 GHz boost.  The compares, adds, shifts and
@@ -149,6 +174,10 @@ class Port:
         from repro_torch.kernels.approx.approx import approx_cuda
         from repro_torch.kernels.approx.ref import approx_batched_ref
         from repro_torch.obs.recorder import Recorder
+        from repro_torch.core import automaton
+        from repro_torch.kernels.acscan.acscan import acscan_cuda
+        from repro_torch.serve import query_plane
+        from repro_torch.serve.server import GrepClient, GrepServer
 
         self.epsm, self.corpus, self.build = epsm, corpus, _build
         self.engine, self.mp, self.mp_ops = engine, multipattern, mp_ops
@@ -156,9 +185,11 @@ class Port:
         self.stream, self.counting, self.Recorder = stream, counting, Recorder
         self.ms_ops, self.ms_plain = ms_ops, megascan_count_window_ref
         self.ax_ops, self.ax_cuda, self.ax_plain = ax_ops, approx_cuda, approx_batched_ref
+        self.automaton, self.acscan_cuda = automaton, acscan_cuda
+        self.qp, self.GrepServer, self.GrepClient = query_plane, GrepServer, GrepClient
         self.wrappers = {"epsma": epsma_cuda, "epsmb": epsmb_cuda, "epsmc": epsmc_cuda,
                          "multipattern": multipattern_cuda, "megascan": megascan_cuda,
-                         "approx": approx_cuda}
+                         "approx": approx_cuda, "acscan": acscan_cuda}
         self.plain = {"epsma": epsma_ref, "epsmb": epsmb_ref, "epsmc": epsmc_filter_ref}
 
     def reset_launches(self) -> None:
@@ -1154,6 +1185,536 @@ def timing_stream_approx(torch, np, port: Port, seed: int, n: int, window_bytes:
     return rows
 
 
+def compare_automaton(torch, np, port: Port, seed: int) -> dict:
+    """Hold the acscan kernel against its plain version on the card, bit for
+    bit: automaton_states with use_kernel=True against use_kernel=False
+    (which takes its own segment width, 128 against the kernel's 132).
+
+    Small shapes: the table in shared memory (genome, 2048 patterns), in L2
+    (english, 8192) and past L2 in HBM (random m = 8, 10,000), each
+    placement also forced where it fits; a dictionary holding byte 0x00;
+    max_m = 2000; n in {1, 127, 128, 129, 131, 132, 133, 1 MiB + 7}; 37
+    ragged rows; count_automaton with end_min.
+
+    The main path's shapes, where every block of the persistent grid loops
+    over several (row, tile)s (checked from the launch's grid): each table
+    on 256 MiB, the genome table in all four placements; the 0x00
+    dictionary and max_m = 2000 on 64 MiB; the english table on blocked's
+    (4096, 65536) ragged batch (states and counts); and the windows
+    stream_count hands the automaton, captured as it runs."""
+    A, corpus, engine = port.automaton, port.corpus, port.engine
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
+    genome = genome_text(torch, 4 * MIB, gen)
+    ghost = genome.cpu().numpy()
+    english = torch.from_numpy(corpus.english(4 * MIB, seed).copy()).to(DEVICE)
+    ehost = english.cpu().numpy()
+
+    def with_zeros(text):
+        return torch.where(torch.rand(text.numel(), generator=gen, device=DEVICE) < 0.2,
+                           torch.zeros_like(text), text)
+
+    zero_text = with_zeros(genome)
+    zpats = dict_patterns(np, corpus, zero_text[:MIB].cpu().numpy(), 200, seed + 10)
+    zpats += [np.array([0, 65, 0, 67], np.uint8), np.zeros(5, np.uint8), np.array([0], np.uint8)]
+    lpats = dict_patterns(np, corpus, ghost, 64, seed + 11) + [ghost[1000:3000].copy()]
+    cases = {
+        # name: (patterns, text, placement wanted by default, forced variants)
+        "genome2048": (dict_patterns(np, corpus, ghost, 2048, seed + 12), genome, "shared",
+                       [("global", None), (None, False), ("global", False)]),
+        "english8192": (dict_patterns(np, corpus, ehost, 8192, seed + 13), english, "global",
+                        [(None, False)]),
+        "random10k": (random_dictionary(np, seed, 10_000), random_text(torch, 4 * MIB, 256, gen),
+                      "global", [(None, False)]),
+        "zero_byte": (zpats, zero_text, None, [("global", None)]),
+        "max_m_2000": (lpats, genome, None, [("global", None), (None, False)]),
+    }
+    done, max_err, tables, autos = 0, 0, {}, {}
+
+    def hold(got, want, label):
+        nonlocal done, max_err
+        torch.cuda.synchronize()
+        if got.numel():
+            max_err = max(max_err, int((got.long() - want.long()).abs().max()))
+        if not torch.equal(got, want):
+            bad = torch.nonzero(got != want)[:4].tolist()
+            raise RuntimeError(f"acscan {label}: kernel != plain at {bad}")
+        done += 1
+
+    def forced_call(x, auto, table, staged):
+        return port.acscan_cuda(x, auto.classes, auto.delta, auto.n_classes, auto.max_m,
+                                _table=table, _staged=staged)
+
+    for name, (pats, text, want_table, forced) in cases.items():
+        auto = autos[name] = A.compile_automaton(pats, device=DEVICE)
+        check(auto is not None, f"{name}: no automaton")
+        table_bytes = 4 * auto.n_states * auto.n_classes
+        configs = []
+        for n in (1, 127, 128, 129, 131, 132, 133, MIB + 7):
+            x = text[:n][None, :].contiguous()
+            plain = A.automaton_states(x, auto, use_kernel=False)
+            hold(A.automaton_states(x, auto, use_kernel=True), plain, f"{name} n={n}")
+            configs.append(dict(port.acscan_cuda.config))
+            if n == MIB + 7:
+                for table, staged in forced:
+                    hold(forced_call(x, auto, table, staged), plain,
+                         f"{name} n={n} table={table} staged={staged}")
+                    configs.append(dict(port.acscan_cuda.config))
+        if want_table is not None:
+            check(configs[-1 - len(forced)]["table_shared"] == (want_table == "shared"),
+                  f"{name}: table placement {configs[-1 - len(forced)]}")
+        # B > 1 ragged rows (rows never share a lane), count_automaton with end_min
+        B = 37
+        L = min(70_001, text.numel() // B - 1)
+        rows = text[: B * L].view(B, L)
+        lengths = torch.randint(0, L + 1, (B,), generator=gen, device=DEVICE)
+        hold(A.automaton_states(rows, auto, use_kernel=True),
+             A.automaton_states(rows, auto, use_kernel=False), f"{name} ragged states")
+        for end_min in (None, 1000):
+            got = A.count_automaton(rows, lengths, auto, end_min=end_min, use_kernel=True)
+            want = A.count_automaton(rows, lengths, auto, end_min=end_min, use_kernel=False)
+            hold(got, want, f"{name} ragged counts end_min={end_min}")
+        tables[name] = {"states": auto.n_states, "classes": auto.n_classes, "max_m": auto.max_m,
+                        "table_bytes": table_bytes, "placements": sorted(
+                            {(c["table_shared"], c["staged"], c["lanes"]) for c in configs})}
+    del genome, english, zero_text, cases
+
+    # -- the main path's shapes
+    big = []
+
+    def hold_big(x, auto, forced, label):
+        """The default and each forced placement on x, several tiles a block."""
+        plain = A.automaton_states(x, auto, use_kernel=False)
+        for table, staged in [(None, None)] + forced:
+            got = (A.automaton_states(x, auto, use_kernel=True) if (table, staged) == (None, None)
+                   else forced_call(x, auto, table, staged))
+            c = dict(port.acscan_cuda.config)
+            hold(got, plain, f"{label} table={table} staged={staged}")
+            del got
+            tiles = x.shape[0] * -(-(-(-x.shape[1] // c["seg"])) // c["lanes"])
+            check(tiles >= 2 * c["grid"], f"{label}: {tiles} tiles for a grid of {c['grid']}")
+            big.append({"case": label, "shape": list(x.shape), "tiles": tiles, "grid": c["grid"],
+                        "placement": [c["table_shared"], c["staged"], c["lanes"]]})
+        del plain
+
+    big_cases = (
+        ("english8192", lambda: english_on_card(torch, np, corpus, 256 * MIB, seed),
+         [(None, False)]),
+        ("genome2048", lambda: genome_text(torch, 256 * MIB, gen),
+         [("global", None), (None, False), ("global", False)]),
+        ("random10k", lambda: random_text(torch, 256 * MIB, 256, gen), []),
+        ("zero_byte", lambda: with_zeros(genome_text(torch, 64 * MIB, gen)), [("global", None)]),
+        ("max_m_2000", lambda: genome_text(torch, 64 * MIB, gen), [("global", None)]),
+    )
+    for name, make, forced in big_cases:
+        x = make()[None, :]
+        hold_big(x, autos[name], forced, f"{name} n={x.shape[1]}")
+        del x
+    # blocked's (4096, 65536) ragged batch with the english table
+    Bb = 4096
+    Lb = 256 * MIB // Bb
+    batch = english_on_card(torch, np, corpus, Bb * Lb, seed).view(Bb, Lb).clone()
+    lengths = torch.randint(1, Lb + 1, (Bb,), generator=gen, device=DEVICE, dtype=torch.int32)
+    batch.masked_fill_(torch.arange(Lb, device=DEVICE)[None, :] >= lengths[:, None], 0)
+    auto = autos["english8192"]
+    hold_big(batch, auto, [], f"english8192 batch {Bb}x{Lb}")
+    for end_min in (None, 1000):
+        hold(A.count_automaton(batch, lengths, auto, end_min=end_min, use_kernel=True),
+             A.count_automaton(batch, lengths, auto, end_min=end_min, use_kernel=False),
+             f"english8192 batch counts end_min={end_min}")
+    del batch
+    # the windows stream_count hands the automaton: main-dict's 8192 english
+    # patterns over three full windows and a short fourth of host english
+    windows, orig = [], engine._automaton_counts
+
+    def capture(index, auto, end_min=None):
+        windows.append((index.text.clone(), index.lengths.clone(), end_min, auto))
+        return orig(index, auto, end_min)
+
+    pats = dict_patterns(np, corpus, ehost, 8192, seed + 14)
+    chunk = port.stream.auto_chunk_bytes(device=DEVICE)
+    engine._automaton_counts = capture
+    try:
+        n_host = 3 * chunk + 12_345
+        port.stream.stream_count(np.tile(ehost, -(-n_host // ehost.size))[:n_host], pats,
+                                 chunk_bytes=chunk, device=DEVICE)
+    finally:
+        engine._automaton_counts = orig
+    check(len(windows) >= 3, f"stream: {len(windows)} automaton windows")
+    for i, (text, lengths, end_min, auto) in enumerate(windows):
+        hold(A.automaton_states(text, auto, use_kernel=True),
+             A.automaton_states(text, auto, use_kernel=False), f"stream window {i} states")
+        hold(A.count_automaton(text, lengths, auto, end_min=end_min, use_kernel=True),
+             A.count_automaton(text, lengths, auto, end_min=end_min, use_kernel=False),
+             f"stream window {i} counts end_min={end_min}")
+    stream = [{"shape": list(t.shape), "length": int(ln[0]), "end_min": e}
+              for t, ln, e, _ in windows]
+    return {"cases": done, "max_abs_err": max_err, "tables": tables, "main_path_shapes": big,
+            "stream_windows": stream}
+
+
+def dict_patterns(np, corpus, host, P: int, seed: int) -> list:
+    """P patterns of lengths 4..15 (as evenly as P allows) extracted from
+    ``host``."""
+    per = [P // len(DICT_LENGTHS) + (i < P % len(DICT_LENGTHS)) for i in range(len(DICT_LENGTHS))]
+    return [p for m, c in zip(DICT_LENGTHS, per) for p in corpus.extract_patterns(host, m, c, seed=seed + m)]
+
+
+def random_dictionary(np, seed: int, P: int, m: int = 8) -> np.ndarray:
+    """benchmarks/run.py bench_dictionary's dictionary: P distinct random
+    m-byte patterns, shuffled."""
+    rng = np.random.default_rng(seed + P)
+    pats = np.unique(rng.integers(0, 256, size=(2 * P, m), dtype=np.uint8), axis=0)
+    rng.shuffle(pats)
+    return pats[:P]
+
+
+def english_on_card(torch, np, corpus, n: int, seed: int):
+    """The 4 MiB corpus.english text tiled to n bytes, on the card."""
+    base = torch.from_numpy(corpus.english(4 * MIB, seed).copy()).to(DEVICE)
+    return base.repeat(-(-n // base.numel()))[:n].contiguous()
+
+
+class AutomatonSpy:
+    """Counts the engine's automaton routes (calls of _automaton_counts)
+    while installed, to hold the acscan launch counter against."""
+
+    def __init__(self, engine):
+        self.engine, self.orig, self.calls = engine, engine._automaton_counts, 0
+
+    def __enter__(self):
+        def spy(*a, **kw):
+            self.calls += 1
+            return self.orig(*a, **kw)
+
+        self.engine._automaton_counts = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._automaton_counts = self.orig
+        return False
+
+
+def main_dict(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """Dictionary-scale counting at full size, each run between a counter
+    reset and a counter read with the engine's automaton routes counted by a
+    spy (acscan launches must equal them), each output then checked against
+    an independent path: count_many with automaton=False plans on a 16 MiB
+    slice, and epsm.count for 16 sampled patterns over the whole text."""
+    engine, mp, corpus, epsm = port.engine, port.mp, port.corpus, port.epsm
+    n, slice_n = sizes["text"], 16 * MIB
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 13)
+    launches = {name: 0 for name in port.wrappers}
+    report = {}
+
+    def run(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        port.reset_launches()
+        with AutomatonSpy(engine) as spy:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = port.launches()
+        check(got["acscan"] == spy.calls,
+              f"{label}: acscan launches {got['acscan']} != automaton routes {spy.calls}")
+        check(all(v == 0 for k, v in got.items() if k != "acscan"),
+              f"{label}: another kernel launched: {got}")
+        for k, v in got.items():
+            launches[k] += v
+        report[label] = {"wall_s": wall, "acscan_launches": got["acscan"],
+                         "automaton_routes": spy.calls,
+                         "peak_gib": torch.cuda.max_memory_allocated() / GIB}
+        return out
+
+    def independent(label, text, plans, flat, pats, counts, order):
+        """counts (plan order) against ``flat`` (the same patterns compiled
+        with automaton=False) on a 16 MiB slice, when the plans carry an
+        automaton, and epsm.count of 16 sampled patterns over the whole
+        text."""
+        if flat is not None:
+            sl = engine.build_index(text[:slice_n])
+            route = engine.route_probe(sl, plans)["route"]
+            check(engine.plan_order(flat).tolist() == list(order), f"{label}: plan order")
+            check(torch.equal(engine.count_many(sl, plans), engine.count_many(sl, flat)),
+                  f"{label}: 16 MiB slice != automaton=False plans (slice route {route})")
+            report[label]["slice_route"] = route
+            del sl
+        for row in np.random.RandomState(seed).choice(len(order), 16, replace=False):
+            p = torch.from_numpy(np.asarray(pats[order[row]]).copy()).to(DEVICE)
+            check(int(counts[row]) == int(epsm.count(text, p)),
+                  f"{label}: row {row} != epsm.count")
+
+    # -- english, 8192 patterns of m 4..15 extracted from the text
+    english = english_on_card(torch, np, corpus, n, seed)
+    ehost = english[: 4 * MIB].cpu().numpy()
+    pats = dict_patterns(np, corpus, ehost, 8192, seed + 14)
+    ps = mp.PatternSet(pats, device=DEVICE)
+    check(all(p.automaton is not None for p in ps.plans), "english8192: plans without automaton")
+    counts = run("count_each_english8192", lambda: ps.count_each(english))
+    report["count_each_english8192"]["route"] = engine.route_probe(ps.index(english), ps.plans)["route"]
+    flat = engine.compile_patterns(pats, automaton=False, device=DEVICE)
+    independent("count_each_english8192", english, ps.plans, flat, pats, counts, ps.order)
+    check(int(counts.min()) >= 1, "english8192: an extracted pattern not counted")
+    # blocked on a (4096, 65536) ragged batch
+    Bb, Lb = sizes["batch"]
+    batch = english[: Bb * Lb].view(Bb, Lb).clone()
+    lengths = torch.randint(1, Lb + 1, (Bb,), generator=gen, device=DEVICE, dtype=torch.int32)
+    batch.masked_fill_(torch.arange(Lb, device=DEVICE)[None, :] >= lengths[:, None], 0)
+    verdicts = run("blocked_english8192", lambda: ps.blocked(batch, lengths))
+    idx = ps.index(batch, lengths)
+    report["blocked_english8192"]["route"] = engine.route_probe(idx, ps.plans)["route"]
+    del idx
+    rows = slice_n // Lb
+    sub = engine.build_index(batch[:rows], lengths[:rows])
+    check(torch.equal(verdicts[:rows], engine.count_many(sub, flat).sum(-1) > 0),
+          "blocked != automaton=False plans on the first 16 MiB of rows")
+    report["blocked_english8192"]["blocked"] = int(verdicts.sum())
+    del batch, sub, flat
+    # -- benchmarks/run.py bench_dictionary at P = 10,000 and 50,000, m = 8,
+    # scaled from 1 MB to the full text: average and adversarial textures
+    for P in (10_000, 50_000):
+        dpats = random_dictionary(np, seed, P)
+        rec = port.Recorder(enabled=True, fence=False)
+        plans = engine.compile_patterns(list(dpats), bucket=True, recorder=rec, device=DEVICE)
+        built = bool(rec.events_named("automaton_built"))
+        check(built == (P == 10_000) and bool(rec.events_named("automaton_skipped")) == (P == 50_000),
+              f"P={P}: automaton built={built}")
+        order = engine.plan_order(plans)
+        flat_plans = (engine.compile_patterns(list(dpats), bucket=True, automaton=False,
+                                              device=DEVICE) if built else None)
+        avg = random_text(torch, n, 256, gen)
+        for i in range(0, P, max(1, P // 37)):
+            pos = (i * 8191) % (n - 8)
+            avg[pos : pos + 8] = torch.from_numpy(dpats[i].copy()).to(DEVICE)
+        flat_d = torch.from_numpy(dpats.reshape(-1).copy()).to(DEVICE)
+        adv = flat_d.repeat(-(-n // flat_d.numel()))[:n].contiguous()
+        for texture, text in (("average", avg), ("adversarial", adv)):
+            label = f"dictionary_{texture}_p{P}"
+            idx = engine.build_index(text)
+            route = engine.route_probe(idx, plans)["route"]
+            got = run(label, lambda: engine.count_many(idx, plans))[0]
+            report[label]["route"] = route
+            del idx
+            independent(label, text, plans, flat_plans, list(dpats), got, order)
+            if texture == "adversarial":
+                check(route == ("automaton" if P == 10_000 else "slot_dense"),
+                      f"{label}: route {route}")
+        del avg, adv
+    # -- stream_count of the english set over host memory: megascan turns
+    # the 8192-pattern set away (more than 512 patterns a group), logged, and
+    # every window's shared pass takes the automaton
+    ns = sizes["stream"]
+    host = np.tile(ehost, ns // ehost.size)
+    events = []
+    stream_log = logging.getLogger("repro_torch.stream")
+    handler, level = _ListHandler(events), stream_log.level
+    stream_log.addHandler(handler)
+    stream_log.setLevel(logging.INFO)
+    try:
+        streamed = run("stream_count_english8192",
+                       lambda: port.stream.stream_count(host, pats, device=DEVICE))
+    finally:
+        stream_log.removeHandler(handler)
+        stream_log.setLevel(level)
+    check(any("kernel_fallback" in e for e in events), "stream: no kernel_fallback logged")
+    # the text is periodic (4 MiB), so the stream's counts are the resident
+    # 256 MiB counts times ns / n plus the occurrences across each of the
+    # (ns / n - 1) joins of 256 MiB copies
+    reps = ns // n
+    ov = max(len(p) for p in pats) - 1
+    seam = torch.cat([english[n - ov :], english[:ov]])
+    whole = ps.count_each(seam).long()
+    parts = ps.count_each(english[n - ov :]).long() + ps.count_each(english[:ov]).long()
+    want = np.zeros(len(pats), np.int64)
+    want[ps.order] = (reps * counts.long() + (reps - 1) * (whole - parts)).cpu().numpy()
+    check(np.array_equal(streamed.astype(np.int64), want), "stream_count != resident count_each")
+    report["stream_count_english8192"].update(bytes=ns, GB_per_s=ns / report[
+        "stream_count_english8192"]["wall_s"] / 1e9)
+    del host, english
+    for label, row in report.items():
+        emit({"phase": "main-dict", "run": label, **row})
+    return {"launches": launches, "report": report}
+
+
+class _ListHandler(logging.Handler):
+    def __init__(self, out: list):
+        super().__init__(logging.DEBUG)
+        self.out = out
+
+    def emit(self, record):
+        self.out.append(record.getMessage())
+
+
+def main_serve(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """A GrepServer on 127.0.0.1 over a QueryPlane on the card: a 256 MiB
+    english corpus loaded in-process and a 1 MiB one sent over the wire.  8
+    client connections send, all at once, 64 count queries of 64 english
+    patterns (16 distinct queries, each 4 times) to the 256 MiB corpus, and
+    to it also 3 any and 2 count queries of 1536 patterns each
+    (dictionary-scale) and one match query with 2 patterns; 4 count queries
+    of 64 patterns go to the 1 MiB corpus.  Every answer is held against
+    PatternSet(query patterns).count_each run alone (the match positions
+    against epsm.positions); the service trace must pass
+    benchmarks/validate_trace.py.
+
+    Coalesced 8 at a time (one in flight per connection), the 64-pattern
+    queries make unions under 1024 patterns, which on 256 MiB of english
+    overflow the shared budget into the dense fallback; the 1536-pattern
+    queries make unions past 1024 that take the automaton."""
+    import asyncio
+
+    engine, mp, corpus, qp = port.engine, port.mp, port.corpus, port.qp
+    n = sizes["text"]
+    english = english_on_card(torch, np, corpus, n, seed)
+    ehost = english[: 4 * MIB].cpu().numpy()
+    corpus_bytes = english.cpu().numpy()
+    small = corpus.english(MIB, seed + 1)
+    pool = [bytes(p) for p in dict_patterns(np, corpus, ehost, 8192, seed + 15)]
+    rs = np.random.RandomState(seed + 15)
+    distinct = [[pool[i] for i in rs.choice(len(pool), 64, replace=False)] for _ in range(16)]
+    big = [pool[j * 1536 : (j + 1) * 1536] for j in range(5)]
+    jobs = [[("english", "count", distinct[(8 * c + j) % 16]) for j in range(8)] for c in range(8)]
+    for c in range(3):
+        jobs[c].insert(1, ("english", "any", big[c]))
+    for c in (3, 4):
+        jobs[c].insert(2, ("english", "count", big[c]))
+    jobs[5].insert(1, ("english", "match", [pool[5], pool[4000]]))
+    for c in range(4, 8):
+        jobs[c].insert(4, ("small", "count", distinct[c]))
+    n_jobs = sum(len(j) for j in jobs)
+    unions, by_kind = [], {}
+    orig_union = qp.canonical_union
+
+    def union_spy(patterns):
+        out = orig_union(patterns)
+        unions.append(len(out[0]))
+        return out
+
+    async def serve():
+        rec = port.Recorder(enabled=True, fence=True)
+        plane = qp.QueryPlane(qp.ServiceConfig(corpus_budget_bytes=8 * GIB, result_cache_entries=0),
+                              recorder=rec, device=DEVICE)
+        plane.add_corpus("english", corpus_bytes)
+        answers, latencies = [], []
+        async with port.GrepServer(plane) as (host, port_no):
+            clients = [await port.GrepClient.connect(host, port_no) for _ in range(8)]
+            added = await clients[0].add_corpus("small", small.tobytes())
+            check(added["ok"], f"add_corpus over the wire: {added}")
+            torch.cuda.synchronize()
+            port.reset_launches()
+            t_all = time.perf_counter()
+
+            async def work(client, mine):
+                for cid, mode, pats in mine:
+                    t0 = time.perf_counter()
+                    resp = await client.query(cid, pats, mode=mode)
+                    latencies.append((time.perf_counter() - t0) * 1e3)
+                    by_kind.setdefault(f"{cid}/{mode}/{len(pats)}", []).append(latencies[-1])
+                    answers.append((cid, mode, pats, resp))
+
+            await asyncio.gather(*[work(c, mine) for c, mine in zip(clients, jobs)])
+            wall = time.perf_counter() - t_all
+            stats = (await clients[0].stats())["stats"]
+            for c in clients:
+                await c.close()
+        return rec, answers, latencies, wall, stats
+
+    qp.canonical_union = union_spy
+    try:
+        with AutomatonSpy(engine) as spy:
+            rec, answers, latencies, wall, stats = asyncio.run(serve())
+    finally:
+        qp.canonical_union = orig_union
+    got = port.launches()
+    routes = spy.calls
+    check(got["acscan"] == routes >= 1,
+          f"serve: acscan launches {got['acscan']} != automaton routes {routes} (need >= 1)")
+    failed = [(cid, mode, r) for cid, mode, _, r in answers if not r["ok"]]
+    check(not failed and len(answers) == n_jobs, f"serve: {len(answers)} answers, failed: {failed[:3]}")
+    # each answer against the query's patterns counted alone
+    small_dev = torch.from_numpy(small.copy()).to(DEVICE)
+    alone: dict = {}
+    for cid, mode, pats, resp in answers:
+        key = (cid, tuple(pats))
+        if key not in alone:
+            ps = mp.PatternSet(list(pats), device=DEVICE)
+            c = ps.count_each(english if cid == "english" else small_dev)
+            want = np.zeros(len(pats), np.int64)
+            want[ps.order] = c.cpu().numpy()
+            alone[key] = want.tolist()
+        check(resp["counts"] == alone[key], f"serve {cid} {mode}: answer != count_each alone")
+        if mode == "match":
+            for p, pos in zip(pats, resp["positions"]):
+                want = port.epsm.positions(english, torch.frombuffer(bytearray(p), dtype=torch.uint8)
+                                           .to(DEVICE))
+                check(np.array_equal(np.asarray(pos, np.int64), want), "serve: match positions")
+    trace = ROOT / "build" / "serve_trace.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    rec.export_trace(trace)
+    val = subprocess.run([sys.executable, str(ROOT / "benchmarks" / "validate_trace.py"), str(trace)],
+                         capture_output=True, text=True, timeout=120)
+    check(val.returncode == 0, f"trace validation failed: {val.stdout} {val.stderr}")
+    lat = np.asarray(latencies)
+    # each engine call of the dispatch thread (fenced): corpus bytes, union size, ms
+    dispatch_ms = [[args["n"], args["p_union"], dur * 1e3]
+                   for rows in rec.trace.snapshot().values()
+                   for _ph, name, _ts, dur, args in sorted(rows, key=lambda r: r[2])
+                   if name == "engine_dispatch"]
+    return emit({"phase": "main-serve", "queries": len(answers), "dispatches": stats["dispatches"],
+                 "coalescing_ratio": stats["coalescing_ratio"], "union_sizes": unions,
+                 "automaton_routes": routes, "acscan_launches": got["acscan"],
+                 "launches": got, "wall_s": wall, "p50_ms": float(np.percentile(lat, 50)),
+                 "p99_ms": float(np.percentile(lat, 99)),
+                 "ms_by_kind": {k: {"queries": len(v), "p50": float(np.median(v)), "max": max(v)}
+                                for k, v in sorted(by_kind.items())},
+                 "dispatch_ms": dispatch_ms,
+                 "trace": val.stdout.strip()})
+
+
+def timing_acscan(torch, np, port: Port, seed: int, n: int) -> dict:
+    """The acscan kernel with the english 8192-pattern table (global
+    memory, L2-resident) and the genome 2048-pattern table (shared memory)
+    over n bytes, beside the plain version and the bound; returns the
+    english row."""
+    A, corpus = port.automaton, port.corpus
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 17)
+    rows = {}
+    for name in ("english8192", "genome2048"):
+        if name == "english8192":
+            text = english_on_card(torch, np, corpus, n, seed)
+            pats = dict_patterns(np, corpus, text[: 4 * MIB].cpu().numpy(), 8192, seed + 14)
+        else:
+            text = genome_text(torch, n, gen)
+            pats = dict_patterns(np, corpus, text[: 4 * MIB].cpu().numpy(), 2048, seed + 12)
+        auto = A.compile_automaton(pats, device=DEVICE)
+        x = text[None, :]
+
+        def call():
+            return port.acscan_cuda(x, auto.classes, auto.delta, auto.n_classes, auto.max_m)
+
+        kernel_ms = time_cuda(torch, call, 20, queued=True)
+        config = dict(port.acscan_cuda.config)
+        call_ms = time_cuda(torch, call, 20)
+        plain_ms = time_cuda(torch, lambda: A.automaton_states(x, auto, use_kernel=False), 5)
+        count_ms = time_cuda(torch, lambda: A.count_automaton(x, [n], auto), 5)
+        # bound: the text read once, the states written once, the table read
+        # once; operations: ~4 integer operations a step over every lane's
+        # seg + max_m - 1 steps
+        seg = config["seg"]
+        lanes = -(-n // seg)
+        cells = auto.n_states * auto.n_classes
+        bound_ms, bound_by = bound_of(5 * n + 4 * cells, 4 * lanes * (seg + auto.max_m - 1))
+        rows[name] = emit({
+            "phase": "timing", "kernel": "acscan", "table": name, "n": n, "states": auto.n_states,
+            "classes": auto.n_classes, "table_bytes": 4 * cells, "config": config,
+            "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "count_automaton_ms": count_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "GB_per_s": n / (kernel_ms * 1e-3) / 1e9})
+        del text, x
+    return rows["english8192"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1196,6 +1757,11 @@ def main() -> int:
     emit({"phase": "compare-approx", **compared_ax, "equal": True,
           "seconds": round(time.perf_counter() - t0, 3)})
     compared["max_abs_err"]["approx"] = compared_ax["max_abs_err"]
+    t0 = time.perf_counter()
+    compared_ac = compare_automaton(torch, np, port, args.seed)
+    emit({"phase": "compare-automaton", **compared_ac, "equal": True,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    compared["max_abs_err"]["acscan"] = compared_ac["max_abs_err"]
 
     launches = main_path(torch, np, port, args.seed, GIB, 256 * MIB)
     t0 = time.perf_counter()
@@ -1215,10 +1781,19 @@ def main() -> int:
                          {"protein": 256 * MIB, "english": 64 * MIB, "batch": (8, 8 * MIB)})
     emit({"phase": "main-approx", "seconds": round(time.perf_counter() - t0, 3)})
     launches["approx"] = approx["launches"]
+    t0 = time.perf_counter()
+    dicts = main_dict(torch, np, port, args.seed,
+                      {"text": 256 * MIB, "batch": (4096, 65536), "stream": GIB})
+    emit({"phase": "main-dict", "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    served = main_serve(torch, np, port, args.seed, {"text": 256 * MIB})
+    emit({"phase": "main-serve", "seconds": round(time.perf_counter() - t0, 3)})
+    launches["acscan"] = dicts["launches"]["acscan"] + served["acscan_launches"]
     rows = timing(torch, port, args.seed, GIB)
     rows["multipattern"] = timing_multipattern(torch, port, args.seed, 8, 8 * MIB, 32)
     rows.update(timing_stream_approx(torch, np, port, args.seed, 64 * MIB,
                                      streamed["window_bytes"], (8, 8 * MIB)))
+    rows["acscan"] = timing_acscan(torch, np, port, args.seed, 256 * MIB)
 
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -7,5 +7,7 @@ torch and numpy only.  Ported so far: ``core.packing``, ``core.epsm``
 multi-pattern CUDA kernel on the full-mask EPSMb route), ``approx``
 (k-mismatch matching, with the approx CUDA kernel on the full-mask route),
 ``core.stream`` (bounded-memory streaming, with the fused megascan CUDA
-kernel), ``obs`` and ``data.corpus``.
+kernel), ``core.automaton`` (the engine's dictionary-scale Aho-Corasick
+route, with the acscan CUDA kernel), ``serve`` (the coalescing query plane
+and its JSON-lines server), ``obs`` and ``data.corpus``.
 """

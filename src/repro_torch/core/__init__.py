@@ -1,10 +1,11 @@
 """Core EPSM library in PyTorch: the parts of ``repro.core`` ported so far.
 
 Ported: ``packing``, the single-pattern EPSM path (``epsm``), the shared-text
-batched engine (``engine``, k-mismatch routes included), the multi-pattern
-API over it (``multipattern``) and the bounded-memory streaming scan
-(``stream``).  Shards and the automaton are still to come (ROADMAP.md
-queue 1).
+batched engine (``engine``, k-mismatch routes and the dictionary-scale
+automaton route included), the packed Aho-Corasick automaton
+(``automaton``), the multi-pattern API over the engine (``multipattern``)
+and the bounded-memory streaming scan (``stream``).  Shards are still to
+come (ROADMAP.md queue 1).
 """
 
 from repro_torch.core.epsm import (

@@ -25,8 +25,11 @@ the same compare in plain PyTorch.  Groups with a mismatch budget k > 0 go
 to the k-mismatch routes of ``repro_torch.approx.counting``, whose full-mask
 route runs the ``approx`` kernel on a CUDA index.
 
-Still to be ported, raising ``NotImplementedError``: the packed Aho-Corasick
-automaton fallback (ROADMAP queue 1 item 8).
+Dictionary-scale plan sets (AUTOMATON_MIN_P patterns or more with a
+bucketed EPSMb group) carry a packed Aho-Corasick automaton over the whole
+dictionary (``repro_torch.core.automaton``); the shared EPSMb pass falls
+back to it on overflow, and on a CUDA index its transition scan runs the
+hand-written ``acscan`` kernel.
 
 Dtype rule (``core/packing.py``): packed words and fingerprints are carried
 as int32 bits; plan arrays that are uint32 or uint16 in the reference are
@@ -43,6 +46,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.automaton import (
+    AutomatonPlan,
+    automaton_from_numpy,
+    compile_automaton,
+    count_automaton,
+)
 from repro_torch.core.epsm import EPSMA_MAX, EPSMB_MAX, EPSMC_BETA, _epsmc_stride
 from repro_torch.core.packing import (
     FP_MULT as _FP_MULT,
@@ -70,15 +79,11 @@ AUTOMATON_MIN_P = 1024
 DENSE_ROUTE_RHO = 0.5
 CAND_BLOCK = 32
 SPARSE_B_MIN_ELEMS = 8_000_000
+# (B, P, n) mask elements one step of the dense count fallback materializes
+DENSE_STEP_ELEMS = 1 << 28
 
 _LOG = logging.getLogger("repro_torch.engine")
 _DEFAULT_REC = Recorder(enabled=False, fence=False, sinks=(logging_sink(_LOG),))
-
-_NOT_AUTOMATON = (
-    "the Aho-Corasick automaton fallback waits for the port of "
-    "core/automaton.py (ROADMAP queue 1 item 8)"
-)
-
 
 # ---------------------------------------------------------------------------
 # Phase 1: TextIndex — pack & fingerprint the text once
@@ -232,8 +237,9 @@ class FingerprintBank:
 class PatternPlan:
     """Compiled matcher state for one equal-length pattern group.
 
-    The reference's fields, as tensors on one device.  The automaton field
-    is absent: that route is not ported yet.
+    The reference's fields, as tensors on one device; ``automaton`` is the
+    dictionary's AutomatonPlan on bucketed EPSMb plans of a dictionary-scale
+    set (the shared pass's fallback), else None.
     """
 
     m: int                   # pattern length
@@ -259,6 +265,7 @@ class PatternPlan:
     c_entry_pid: Optional[torch.Tensor] = None     # (P*stride,) int32
     c_entry_off: Optional[torch.Tensor] = None     # (P*stride,) int32
     c_entry_pat: Optional[torch.Tensor] = None     # (P*stride, m) uint8
+    automaton: Optional[AutomatonPlan] = None      # whole-dictionary fallback
 
     @property
     def n_patterns(self) -> int:
@@ -280,7 +287,7 @@ class PatternPlan:
 TENSOR_FIELDS = tuple(
     f.name for f in dataclasses.fields(PatternPlan)
     if f.name not in ("m", "kbits", "ids", "distinct", "k", "relaxed_bits", "bbits", "lut_pop",
-                      "slot_max")
+                      "slot_max", "automaton")
 )
 
 
@@ -303,12 +310,15 @@ def plan_from_numpy(fields: dict, *, device=None) -> PatternPlan:
     ``fields`` maps each reference field name to its numpy array (array
     fields) or Python value (static fields), e.g. from ``jax.device_get`` of
     the reference plan, k-mismatch plans (``k``, ``relaxed_lut``,
-    ``relaxed_bits``) included.  The automaton field, whose route is not
-    ported yet, must be None.
+    ``relaxed_bits``) included.  ``automaton`` is None, a port
+    AutomatonPlan, or the reference automaton's fields as host values
+    (converted by :func:`automaton_from_numpy`).
     """
-    if fields.get("automaton") is not None:
-        raise NotImplementedError(_NOT_AUTOMATON)
     dev = resolve_device(device)
+    auto = fields.get("automaton")
+    if auto is not None:
+        auto = auto.to(dev) if isinstance(auto, AutomatonPlan) else automaton_from_numpy(
+            auto, device=dev)
     return PatternPlan(
         m=int(fields["m"]),
         kbits=int(fields["kbits"]),
@@ -319,6 +329,7 @@ def plan_from_numpy(fields: dict, *, device=None) -> PatternPlan:
         bbits=int(fields.get("bbits", 0)),
         lut_pop=int(fields.get("lut_pop", 0)),
         slot_max=int(fields.get("slot_max", 0)),
+        automaton=auto,
         **{name: _to_tensor(fields.get(name), dev) for name in TENSOR_FIELDS},
     )
 
@@ -353,10 +364,12 @@ def compile_patterns(
     ``canonical`` as there), built on the host in numpy and placed on
     ``device`` (default: the card).  ``k > 0`` additionally fills the
     relaxed fingerprint LUT of every <= k-reachable window fingerprint
-    (``repro_torch.approx.relaxed``).  Every case where the reference would
-    build the automaton fallback raises (``automaton=True``, or ``"auto"``
-    at AUTOMATON_MIN_P or more patterns, whenever a group is a bucketed
-    EPSMb plan): that route is not ported yet.
+    (``repro_torch.approx.relaxed``).  ``automaton`` gates the packed
+    Aho-Corasick fallback attached to bucketed EPSMb plans, as in the
+    reference: True builds it, "auto" builds it from AUTOMATON_MIN_P
+    patterns, both only when a group is a bucketed EPSMb plan and the
+    automaton's size caps hold (``automaton_built`` / ``automaton_skipped``
+    events), False skips it.
     """
     if k < 0:
         raise ValueError("mismatch budget k must be >= 0")
@@ -367,16 +380,16 @@ def compile_patterns(
     dev = resolve_device(device)
     rec = _DEFAULT_REC if recorder is None else recorder
     groups: dict = {}
-    n_total = 0
+    arrs: List[np.ndarray] = []
     for i, p in enumerate(patterns):
         arr = as_u8_np(p)
         if arr.ndim != 1 or arr.size == 0:
             raise ValueError("patterns must be non-empty 1-D byte strings")
         groups.setdefault(arr.size, []).append((i, arr))
-        n_total += 1
+        arrs.append(arr)
 
     plans: List[PatternPlan] = []
-    with rec.span("plan_compile", groups=len(groups), p_total=n_total):
+    with rec.span("plan_compile", groups=len(groups), p_total=len(arrs)):
         for m in sorted(groups):
             ids = tuple(i for i, _ in groups[m])
             pats = np.stack([a for _, a in groups[m]])
@@ -479,11 +492,20 @@ def compile_patterns(
                     **{name: _to_tensor(a, dev) for name, a in arrays.items()},
                 )
             )
-        want_auto = automaton is True or (
-            automaton == "auto" and n_total >= AUTOMATON_MIN_P
-        )
+        # the automaton covers the WHOLE input dictionary in input order, so
+        # any plan subset column-selects its counts via plan.ids; it rides
+        # on every bucketed EPSMb plan (the shared pass's fallback users)
+        want_auto = automaton is True or (automaton == "auto" and len(arrs) >= AUTOMATON_MIN_P)
         if want_auto and any(p.slot_off is not None for p in plans):
-            raise NotImplementedError(_NOT_AUTOMATON)
+            with rec.span("automaton_compile", p_total=len(arrs)):
+                auto = compile_automaton(arrs, device=dev)
+            if auto is None:
+                rec.event("automaton_skipped", p_total=len(arrs))
+            else:
+                rec.event("automaton_built", states=auto.n_states, classes=auto.n_classes,
+                          entries=auto.n_entries, out_max=auto.out_max)
+                plans = [dataclasses.replace(p, automaton=auto) if p.slot_off is not None else p
+                         for p in plans]
     return tuple(plans)
 
 
@@ -498,12 +520,16 @@ def replicate_plans(plans: Sequence[PatternPlan], device) -> Tuple[PatternPlan, 
     if device is None:
         return tuple(plans)
     dev = torch.device(device)
-    return tuple(
-        dataclasses.replace(
-            p, **{f: getattr(p, f).to(dev) for f in TENSOR_FIELDS if getattr(p, f) is not None}
-        )
-        for p in plans
-    )
+    autos: dict = {}  # one copy of an automaton the plans share
+    out = []
+    for p in plans:
+        moved = {f: getattr(p, f).to(dev) for f in TENSOR_FIELDS if getattr(p, f) is not None}
+        if p.automaton is not None:
+            if id(p.automaton) not in autos:
+                autos[id(p.automaton)] = p.automaton.to(dev)
+            moved["automaton"] = autos[id(p.automaton)]
+        out.append(dataclasses.replace(p, **moved))
+    return tuple(out)
 
 
 _PLAN_CACHE: dict = {}
@@ -711,8 +737,20 @@ def _b_verify(index: TextIndex, plan: PatternPlan, blk_any, nblk: int, end_min=N
 
 
 def _dense_count(index: TextIndex, plan: PatternPlan, dense_fn, end_min=None) -> torch.Tensor:
-    """Counts via the dense mask (fallback only)."""
-    return dense_fn(index, plan, end_min).sum(-1, dtype=torch.int32)
+    """Counts via the dense mask (fallback only), a slice of the plan's
+    patterns at a time so that no step holds more than DENSE_STEP_ELEMS
+    (B, P, n) mask elements (and their int32 sum): the whole mask of a
+    64-pattern group over 256 MiB would take 16 GiB, its sum 64 GiB."""
+    step = max(1, DENSE_STEP_ELEMS // max(1, index.batch * index.n))
+    P = plan.n_patterns
+    if step >= P:
+        return dense_fn(index, plan, end_min).sum(-1, dtype=torch.int32)
+    outs = []
+    for s in range(0, P, step):
+        sub = dataclasses.replace(plan, patterns=plan.patterns[s : s + step],
+                                  anchors=plan.anchors[s : s + step])
+        outs.append(dense_fn(index, sub, end_min).sum(-1, dtype=torch.int32))
+    return torch.cat(outs, dim=1)
 
 
 def _match_group_b(index: TextIndex, plan: PatternPlan, bank=None, end_min=None) -> torch.Tensor:
@@ -863,21 +901,36 @@ class _SharedRoute:
     exp_blocks: int        # expected candidate blocks (static model)
     rho: float             # expected candidate-block density
     static_fallback: bool  # skip the sparse machinery entirely
-    kind: str              # fallback kind: "slot_dense" | "dense"
+    automaton: Optional[AutomatonPlan]  # the fallback's automaton, or None
+    kind: str              # fallback kind: "automaton" | "slot_dense" | "dense"
 
 
 def _shared_b_route(index: TextIndex, plans: Sequence[PatternPlan]) -> _SharedRoute:
     """One routing decision shared by _count_groups_b_shared and
-    route_probe.  The reference's "automaton" kind cannot arise: plans that
-    would carry an automaton are refused by compile_patterns."""
+    route_probe, so the dispatcher and the probe cannot disagree: an
+    overflowing slot table with an automaton at hand, or an expected block
+    density past DENSE_ROUTE_RHO, skips the sparse pass statically."""
     B, n = index.text.shape
     nblk = -(-n // CAND_BLOCK)
     exp, rho = _expected_union_blocks(B, n, plans)
     budget = int(min(B * nblk, max(4096, 2 * exp + 8 * B + (B * nblk) // 16)))
-    static_fallback = rho > DENSE_ROUTE_RHO
-    kind = "slot_dense" if any(p.slot_off is not None for p in plans) else "dense"
+    auto = next((p.automaton for p in plans if p.automaton is not None), None)
+    slot_cap_hit = any(p.slot_off is not None and p.slot_max > SLOT_VERIFY_CAP for p in plans)
+    static_fallback = (slot_cap_hit and auto is not None) or rho > DENSE_ROUTE_RHO
+    if auto is not None:
+        kind = "automaton"
+    elif any(p.slot_off is not None for p in plans):
+        kind = "slot_dense"
+    else:
+        kind = "dense"
     return _SharedRoute(budget=budget, exp_blocks=exp, rho=rho,
-                        static_fallback=static_fallback, kind=kind)
+                        static_fallback=static_fallback, automaton=auto, kind=kind)
+
+
+def _automaton_counts(index: TextIndex, auto: AutomatonPlan, end_min=None) -> torch.Tensor:
+    """(B, N_input) exact counts through the packed Aho-Corasick fallback,
+    linear in n whatever the candidate density (DESIGN.md §14)."""
+    return count_automaton(index.text, index.lengths, auto, end_min=end_min)
 
 
 def _union_blocks(index: TextIndex, plans: Sequence[PatternPlan], bank: FingerprintBank,
@@ -898,7 +951,10 @@ def _count_groups_b_shared(index: TextIndex, plans: Sequence[PatternPlan],
     """Multi-group EPSMb counting with ONE shared candidate pass: the groups'
     candidate blocks are OR'd into one union, compacted and gathered once
     (spanning max_m), and each group verifies only its own patterns on the
-    shared rows.  Union overflow sends every group to its fallback."""
+    shared rows.  Union overflow sends every group to its fallback: the
+    packed automaton when a plan carries one (counted once over the whole
+    dictionary, each plan column-selecting its ids), else the slot-dense
+    verify for bucketed plans and the dense compare for flat ones."""
     B, n = index.text.shape
     C = CAND_BLOCK
     nblk = -(-n // C)
@@ -906,6 +962,9 @@ def _count_groups_b_shared(index: TextIndex, plans: Sequence[PatternPlan],
     route = _shared_b_route(index, plans)
 
     def fallback():
+        if route.automaton is not None:
+            ca = _automaton_counts(index, route.automaton, end_min)
+            return torch.cat([ca[:, list(p.ids)] for p in plans], dim=1)
         outs = []
         for p in plans:
             if p.slot_off is not None:

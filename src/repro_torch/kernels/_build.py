@@ -22,7 +22,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("epsma", "epsmb", "epsmc", "multipattern", "megascan", "approx")
+KERNELS = ("epsma", "epsmb", "epsmc", "multipattern", "megascan", "approx", "acscan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -38,7 +38,8 @@ def test_import_leaves_jax_out():
         "import sys, repro_torch, repro_torch.core, repro_torch.core.epsm, "
         "repro_torch.kernels.epsmc.ops, repro_torch.kernels.multipattern.ops, repro_torch.obs, "
         "repro_torch.core.stream, repro_torch.approx, repro_torch.kernels.megascan.ops, "
-        "repro_torch.kernels.approx.ops; "
+        "repro_torch.kernels.approx.ops, repro_torch.core.automaton, "
+        "repro_torch.kernels.acscan.ops, repro_torch.serve.query_plane, repro_torch.serve.server; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

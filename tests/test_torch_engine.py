@@ -213,10 +213,17 @@ def test_plans_from_reference_give_reference_results(rng, case, bucket, canonica
 
 
 def test_plan_from_numpy_refuses_unported_routes(rng):
-    (plan,) = R.compile_patterns([b"abcdefgh"] * 4, bucket=True, automaton=True)
-    assert plan.automaton is not None
-    with pytest.raises(NotImplementedError, match="item 8"):
-        E.plan_from_numpy(_ref_fields(plan), device=CPU)
+    """Every reference plan field carries across now: a plan holding the
+    automaton converts (the automaton route is ported), and a k-mismatch
+    plan carries its relaxed LUT over; both answer as the reference."""
+    ref_auto = R.compile_patterns([b"abcdefgh"] * 4, bucket=True, automaton=True)
+    assert ref_auto[0].automaton is not None
+    (plan,) = (E.plan_from_numpy(_ref_fields(p), device=CPU) for p in ref_auto)
+    assert plan.automaton is not None and plan.automaton.n_states == ref_auto[0].automaton.n_states
+    t = np.frombuffer(b"xxabcdefghabcdefghyy", np.uint8)
+    np.testing.assert_array_equal(E._automaton_counts(E.build_index(t, device=CPU), plan.automaton),
+                                  np.asarray(R._automaton_counts(R.build_index(t),
+                                                                 ref_auto[0].automaton)))
     # a k-mismatch plan carries its relaxed LUT over and answers as the reference
     ref_plans = R.compile_patterns([b"abcdefgh", b"abcdxfgh"], k=1)
     (plan,) = (E.plan_from_numpy(_ref_fields(p), device=CPU) for p in ref_plans)
@@ -228,15 +235,21 @@ def test_plan_from_numpy_refuses_unported_routes(rng):
 
 
 def test_unported_routes_raise():
-    (fuzzy,) = E.compile_patterns([b"abcd"], k=1, device=CPU)  # k > 0 is ported now
+    """No route raises any more: k > 0 plans and the automaton fallback are
+    both ported, and compile_patterns attaches the automaton exactly where
+    the reference does."""
+    (fuzzy,) = E.compile_patterns([b"abcd"], k=1, device=CPU)
     assert fuzzy.k == 1 and fuzzy.relaxed_lut is not None
-    with pytest.raises(NotImplementedError, match="item 8"):
-        E.compile_patterns([b"abcdefgh"] * 4, bucket=True, automaton=True, device=CPU)
+    (plan,) = E.compile_patterns([b"abcdefgh"] * 4, bucket=True, automaton=True, device=CPU)
+    assert plan.automaton is not None
     # "auto" builds the automaton only with a bucketed EPSMb group
     pats = [bytes([i % 256, i // 256]) * 8 for i in range(1100)]
-    E.compile_patterns(pats, device=CPU)  # m = 16: EPSMc, no automaton
-    with pytest.raises(NotImplementedError, match="item 8"):
-        E.compile_patterns([p[:8] for p in pats], device=CPU)
+    (c_plan,) = E.compile_patterns(pats, device=CPU)  # m = 16: EPSMc, no automaton
+    assert c_plan.automaton is None
+    (b_plan,) = E.compile_patterns([p[:8] for p in pats], device=CPU)
+    (ref_b,) = R.compile_patterns([p[:8] for p in pats])
+    assert b_plan.automaton is not None and ref_b.automaton is not None
+    assert b_plan.automaton.n_states == ref_b.automaton.n_states
     (plan,) = E.compile_patterns([b"abcd"], device=CPU)
     idx = E.build_index(b"xxabcd", device=CPU)
     (ref,) = R.compile_patterns([b"abcd"])
@@ -481,6 +494,30 @@ def test_dense_routes_static_and_overflow(rng, monkeypatch):
     counts = _np(E.count_many(E.build_index(t, device=CPU), plans_z, shared=False))
     assert spy.calls["_dense_count"] == 1 and spy.calls["_gather_candidate_rows"] == 0
     np.testing.assert_array_equal(counts, _oracle_counts([t], pz, E.plan_order(plans_z)))
+
+
+def test_dense_count_slices_patterns(rng, monkeypatch):
+    """The dense count fallback materializes at most DENSE_STEP_ELEMS mask
+    elements a step, a slice of patterns at a time, with the reference's
+    counts (EPSMb and EPSMc groups, ragged rows, end_min)."""
+    docs = [make_text(rng, 3000, 3) for _ in range(3)]
+    pats = [docs[0][s : s + m].copy() for m in (5, 20) for s in (3, 50, 700, 1200, 2000)]
+    pats += [rng.randint(0, 3, size=m).astype(np.uint8) for m in (5, 20)]
+    lengths = np.array([3000, 2100, 7])
+    plans = E.compile_patterns(pats, device=CPU)
+    idx = E.build_index(np.stack(docs), lengths, device=CPU)
+    whole = [E._dense_count(idx, p, E._dense_b if p.regime == "b" else E._dense_c, 40)
+             for p in plans]
+    monkeypatch.setattr(E, "DENSE_STEP_ELEMS", 2 * 3 * 3000)  # two patterns a step
+    spy = Spy(monkeypatch, "_dense_b", "_dense_c")
+    sliced = [E._dense_count(idx, p, E._dense_b if p.regime == "b" else E._dense_c, 40)
+              for p in plans]
+    assert spy.calls == {"_dense_b": 3, "_dense_c": 3}  # 6 patterns a group, 2 a step
+    ridx = R.build_index(np.stack(docs), lengths)
+    rplans = R.compile_patterns(pats)
+    want = np.asarray(R.count_many(ridx, rplans, end_min=40))
+    np.testing.assert_array_equal(torch.cat(sliced, 1).numpy(), want)
+    assert all(torch.equal(a, b) for a, b in zip(whole, sliced))
 
 
 def test_epsmc_sparse_route(rng, monkeypatch):

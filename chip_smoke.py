@@ -27,12 +27,16 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 LUT gate on and off, flood, trailing 0x00, ragged lengths,
                 70000 rows, an unaligned row view, and end_min through the
                 engine's k-mismatch mask route;
-  compare-automaton the acscan kernel against its plain version: automaton
-                states of tables in shared memory (genome, 2048 patterns), in
-                L2 (english, 8192) and in HBM (random m = 8, 10,000), placements
-                forced where they fit, a dictionary holding byte 0x00,
-                max_m = 2000, n from 1 to 1 MiB + 7 around the segment widths,
-                ragged rows, and count_automaton with end_min;
+  compare-automaton the acscan kernel's two modes against their plain
+                versions: automaton states and terminal-state histograms of
+                tables in shared memory (genome, 2048 patterns), in L2
+                (english, 8192) and in HBM (random m = 8, 10,000), uint16 and
+                int32 entries, every variant forced where it fits (table and
+                histogram placement, lanes a thread), a
+                dictionary holding byte 0x00, max_m = 2000, n from 1 to
+                1 MiB + 7 around the segment widths, ragged rows, end_min,
+                and the main path's shapes (256 MiB, the (4096, 65536)
+                batch, the stream's windows);
   main          epsm.find / count / positions with algo="auto" on device texts of
                 1 GiB genome, 256 MiB protein and 256 MiB english, with the kernels'
                 launch counters set to 0 just before and read just after;
@@ -61,7 +65,8 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 50,000 patterns on its average and adversarial textures, and
                 stream_count of the english set over 1 GiB of host memory
                 (megascan turns it away; the automaton takes every window);
-                acscan launches held equal to the automaton routes taken, and
+                acscan counts-mode launches held equal to the automaton
+                routes taken (and no states-mode launch), and
                 counts to automaton=False plans on a 16 MiB slice and epsm.count;
   main-serve    a GrepServer on 127.0.0.1 over a QueryPlane on the card: a
                 256 MiB english corpus, a 1 MiB one sent over the wire, 8
@@ -73,9 +78,12 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 so they exclude the wrapper's host time) beside the plain
                 versions' times and the bounds, and the times of epsm.find and
                 epsm.count around the EPSM kernels; megascan at the stream's
-                window (the kernels line) and on one 64 MiB window; acscan
-                over 256 MiB with the english 8192-pattern table (the kernels
-                line) and the genome 2048-pattern table in shared memory.
+                window (the kernels line) and on one 64 MiB window; acscan's
+                states and counts modes beside both bounds, and every forced
+                variant, at the main path's shapes: 256 MiB english (the
+                counts mode there is the kernels line), genome and
+                bench_dictionary's adversarial texture, the (4096, 65536)
+                batch and a 4 MiB stream window with end_min.
 
 Then one line {"kernels": [...]}, the card's name and power limit as
 nvidia-smi prints them, and last {"ok": true, "device": {...}}.  Any failed
@@ -175,7 +183,8 @@ class Port:
         from repro_torch.kernels.approx.ref import approx_batched_ref
         from repro_torch.obs.recorder import Recorder
         from repro_torch.core import automaton
-        from repro_torch.kernels.acscan.acscan import acscan_cuda
+        from repro_torch.kernels.acscan.acscan import acscan_counts_cuda, acscan_cuda
+        from repro_torch.kernels.acscan.ref import acscan_counts_ref, acscan_states_ref
         from repro_torch.serve import query_plane
         from repro_torch.serve.server import GrepClient, GrepServer
 
@@ -186,10 +195,13 @@ class Port:
         self.ms_ops, self.ms_plain = ms_ops, megascan_count_window_ref
         self.ax_ops, self.ax_cuda, self.ax_plain = ax_ops, approx_cuda, approx_batched_ref
         self.automaton, self.acscan_cuda = automaton, acscan_cuda
+        self.acscan_counts_cuda, self.acscan_counts_ref = acscan_counts_cuda, acscan_counts_ref
+        self.acscan_states_ref = acscan_states_ref
         self.qp, self.GrepServer, self.GrepClient = query_plane, GrepServer, GrepClient
         self.wrappers = {"epsma": epsma_cuda, "epsmb": epsmb_cuda, "epsmc": epsmc_cuda,
                          "multipattern": multipattern_cuda, "megascan": megascan_cuda,
-                         "approx": approx_cuda, "acscan": acscan_cuda}
+                         "approx": approx_cuda, "acscan": acscan_cuda,
+                         "acscan_counts": acscan_counts_cuda}
         self.plain = {"epsma": epsma_ref, "epsmb": epsmb_ref, "epsmc": epsmc_filter_ref}
 
     def reset_launches(self) -> None:
@@ -1190,18 +1202,26 @@ def compare_automaton(torch, np, port: Port, seed: int) -> dict:
     bit: automaton_states with use_kernel=True against use_kernel=False
     (which takes its own segment width, 128 against the kernel's 132).
 
-    Small shapes: the table in shared memory (genome, 2048 patterns), in L2
-    (english, 8192) and past L2 in HBM (random m = 8, 10,000), each
-    placement also forced where it fits; a dictionary holding byte 0x00;
+    Small shapes: the counts mode's table in shared memory (genome, 2048
+    patterns), in L2 (english, 8192) and past L2 in HBM (random m = 8,
+    10,000), the table in shared memory also forced where it fits (the
+    states mode's default is global memory); a dictionary holding byte 0x00;
     max_m = 2000; n in {1, 127, 128, 129, 131, 132, 133, 1 MiB + 7}; 37
-    ragged rows; count_automaton with end_min.
+    ragged rows; count_automaton with end_min.  The counts mode
+    (acscan_counts_cuda against acscan_counts_ref) on the ragged rows with
+    and without end_min, in every variant that fits (table in shared or
+    global memory, histogram in shared or global memory, 1 or 4 lanes a
+    thread), with the uint16 table and its int32 copy.
 
-    The main path's shapes, where every block of the persistent grid loops
-    over several (row, tile)s (checked from the launch's grid): each table
-    on 256 MiB, the genome table in all four placements; the 0x00
+    The main path's shapes, where on 256 MiB every block of the persistent
+    grid loops over several (row, tile)s (checked from the launch's grid):
+    each table on 256 MiB, in the states mode every variant that fits over
+    the uint16 table and the forced placements over the int32 one; the 0x00
     dictionary and max_m = 2000 on 64 MiB; the english table on blocked's
     (4096, 65536) ragged batch (states and counts); and the windows
-    stream_count hands the automaton, captured as it runs."""
+    stream_count hands the automaton, captured as it runs.  At each, the
+    counts mode in every variant that fits, with end_min on the batch and
+    the windows."""
     A, corpus, engine = port.automaton, port.corpus, port.engine
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 9)
     genome = genome_text(torch, 4 * MIB, gen)
@@ -1218,15 +1238,14 @@ def compare_automaton(torch, np, port: Port, seed: int) -> dict:
     zpats += [np.array([0, 65, 0, 67], np.uint8), np.zeros(5, np.uint8), np.array([0], np.uint8)]
     lpats = dict_patterns(np, corpus, ghost, 64, seed + 11) + [ghost[1000:3000].copy()]
     cases = {
-        # name: (patterns, text, placement wanted by default, forced variants)
+        # name: (patterns, text, counts-mode placement wanted by default, forced variants)
         "genome2048": (dict_patterns(np, corpus, ghost, 2048, seed + 12), genome, "shared",
-                       [("global", None), (None, False), ("global", False)]),
-        "english8192": (dict_patterns(np, corpus, ehost, 8192, seed + 13), english, "global",
-                        [(None, False)]),
+                       ["shared"]),
+        "english8192": (dict_patterns(np, corpus, ehost, 8192, seed + 13), english, "global", []),
         "random10k": (random_dictionary(np, seed, 10_000), random_text(torch, 4 * MIB, 256, gen),
-                      "global", [(None, False)]),
-        "zero_byte": (zpats, zero_text, None, [("global", None)]),
-        "max_m_2000": (lpats, genome, None, [("global", None), (None, False)]),
+                      "global", []),
+        "zero_byte": (zpats, zero_text, None, ["shared"]),
+        "max_m_2000": (lpats, genome, None, ["shared"]),
     }
     done, max_err, tables, autos = 0, 0, {}, {}
 
@@ -1240,9 +1259,34 @@ def compare_automaton(torch, np, port: Port, seed: int) -> dict:
             raise RuntimeError(f"acscan {label}: kernel != plain at {bad}")
         done += 1
 
-    def forced_call(x, auto, table, staged):
+    def forced_call(x, auto, table):
         return port.acscan_cuda(x, auto.classes, auto.delta, auto.n_classes, auto.max_m,
-                                _table=table, _staged=staged)
+                                _table=table)
+
+    counts_seen = []
+
+    def hold_counts(x, lengths, end_min, auto, label, dtypes=False, persistent=False):
+        """acscan_counts_cuda in every variant that fits against
+        acscan_counts_ref; with ``dtypes`` also over the int32 copy of a
+        uint16 table; with ``persistent`` each launch loops its blocks."""
+        kt = A.kernel_tables(auto)
+        tabs = [kt.counts]
+        if dtypes and kt.counts.dtype != torch.int32:
+            tabs.append(kt.counts.int())
+        args = (auto.classes, kt.counts, auto.n_classes, kt.n_term, auto.max_m, lengths)
+        want = port.acscan_counts_ref(x, *args, end_min=end_min)
+        for tab in tabs:
+            for v in [None] + acscan_variants(auto, kt, tab):
+                got = port.acscan_counts_cuda(x, auto.classes, tab, *args[2:], end_min=end_min,
+                                              **(v or {}))
+                c = dict(port.acscan_counts_cuda.config)
+                hold(got, want, f"{label} counts {tab.dtype} {v} end_min={end_min}")
+                counts_seen.append((c["table_shared"], c["mode"], c["lanes"], c["entry_bytes"],
+                                    c["one_block"]))
+                if persistent:
+                    tiles = acscan_tiles(x, c)
+                    check(tiles >= 2 * c["grid"], f"{label}: {tiles} tiles, grid {c['grid']}")
+        del want
 
     for name, (pats, text, want_table, forced) in cases.items():
         auto = autos[name] = A.compile_automaton(pats, device=DEVICE)
@@ -1255,13 +1299,15 @@ def compare_automaton(torch, np, port: Port, seed: int) -> dict:
             hold(A.automaton_states(x, auto, use_kernel=True), plain, f"{name} n={n}")
             configs.append(dict(port.acscan_cuda.config))
             if n == MIB + 7:
-                for table, staged in forced:
-                    hold(forced_call(x, auto, table, staged), plain,
-                         f"{name} n={n} table={table} staged={staged}")
+                for table in forced:
+                    hold(forced_call(x, auto, table), plain, f"{name} n={n} table={table}")
                     configs.append(dict(port.acscan_cuda.config))
-        if want_table is not None:
-            check(configs[-1 - len(forced)]["table_shared"] == (want_table == "shared"),
-                  f"{name}: table placement {configs[-1 - len(forced)]}")
+                hold(A.count_automaton(x, [n], auto, use_kernel=True),
+                     A.count_automaton(x, [n], auto, use_kernel=False), f"{name} n={n} counts")
+                placed = dict(port.acscan_counts_cuda.config)
+        if want_table is not None:  # where the counts mode, the main path's, puts the table
+            check(placed["table_shared"] == (want_table == "shared"),
+                  f"{name}: table placement {placed}")
         # B > 1 ragged rows (rows never share a lane), count_automaton with end_min
         B = 37
         L = min(70_001, text.numel() // B - 1)
@@ -1273,41 +1319,54 @@ def compare_automaton(torch, np, port: Port, seed: int) -> dict:
             got = A.count_automaton(rows, lengths, auto, end_min=end_min, use_kernel=True)
             want = A.count_automaton(rows, lengths, auto, end_min=end_min, use_kernel=False)
             hold(got, want, f"{name} ragged counts end_min={end_min}")
+            hold_counts(rows, lengths, end_min, auto, f"{name} ragged", dtypes=True)
+        kt = A.kernel_tables(auto)
         tables[name] = {"states": auto.n_states, "classes": auto.n_classes, "max_m": auto.max_m,
-                        "table_bytes": table_bytes, "placements": sorted(
-                            {(c["table_shared"], c["staged"], c["lanes"]) for c in configs})}
+                        "n_term": kt.n_term, "table_bytes": table_bytes,
+                        "entry_bytes": kt.counts.element_size(), "placements": sorted(
+                            {(c["table_shared"], c["lanes"]) for c in configs})}
     del genome, english, zero_text, cases
 
     # -- the main path's shapes
     big = []
 
     def hold_big(x, auto, forced, label):
-        """The default and each forced placement on x, several tiles a block."""
+        """The default and each forced placement on x (the plan's int32
+        table), and each variant that fits over the uint16 copy where the
+        ids fit, several tiles a block."""
         plain = A.automaton_states(x, auto, use_kernel=False)
-        for table, staged in [(None, None)] + forced:
-            got = (A.automaton_states(x, auto, use_kernel=True) if (table, staged) == (None, None)
-                   else forced_call(x, auto, table, staged))
+        kt = A.kernel_tables(auto)
+        calls = [(None, lambda: A.automaton_states(x, auto, use_kernel=True))]
+        calls += [(t, lambda t=t: forced_call(x, auto, t)) for t in forced]
+        if kt.states.dtype != torch.int32:
+            calls += [(v, lambda v=v: port.acscan_cuda(x, auto.classes, kt.states, auto.n_classes,
+                                                       auto.max_m, **v))
+                      for v in acscan_variants(auto, kt, kt.states, counts=False)]
+        for v, call in calls:
+            got = call()
             c = dict(port.acscan_cuda.config)
-            hold(got, plain, f"{label} table={table} staged={staged}")
+            hold(got, plain, f"{label} states {v}")
             del got
-            tiles = x.shape[0] * -(-(-(-x.shape[1] // c["seg"])) // c["lanes"])
-            check(tiles >= 2 * c["grid"], f"{label}: {tiles} tiles for a grid of {c['grid']}")
-            big.append({"case": label, "shape": list(x.shape), "tiles": tiles, "grid": c["grid"],
-                        "placement": [c["table_shared"], c["staged"], c["lanes"]]})
+            tiles = acscan_tiles(x, c)
+            if x.numel() >= 256 * MIB:
+                check(tiles >= 2 * c["grid"], f"{label}: {tiles} tiles for a grid of {c['grid']}")
+            big.append({"case": label, "variant": v, "shape": list(x.shape), "tiles": tiles,
+                        "grid": c["grid"], "placement": [c["table_shared"], c["lanes"],
+                                                         c["threads"], c["entry_bytes"]]})
         del plain
 
     big_cases = (
-        ("english8192", lambda: english_on_card(torch, np, corpus, 256 * MIB, seed),
-         [(None, False)]),
-        ("genome2048", lambda: genome_text(torch, 256 * MIB, gen),
-         [("global", None), (None, False), ("global", False)]),
+        ("english8192", lambda: english_on_card(torch, np, corpus, 256 * MIB, seed), []),
+        ("genome2048", lambda: genome_text(torch, 256 * MIB, gen), ["shared"]),
         ("random10k", lambda: random_text(torch, 256 * MIB, 256, gen), []),
-        ("zero_byte", lambda: with_zeros(genome_text(torch, 64 * MIB, gen)), [("global", None)]),
-        ("max_m_2000", lambda: genome_text(torch, 64 * MIB, gen), [("global", None)]),
+        ("zero_byte", lambda: with_zeros(genome_text(torch, 64 * MIB, gen)), ["shared"]),
+        ("max_m_2000", lambda: genome_text(torch, 64 * MIB, gen), ["shared"]),
     )
     for name, make, forced in big_cases:
         x = make()[None, :]
         hold_big(x, autos[name], forced, f"{name} n={x.shape[1]}")
+        hold_counts(x, [x.shape[1]], None, autos[name], f"{name} n={x.shape[1]}",
+                    persistent=x.shape[1] >= 256 * MIB)
         del x
     # blocked's (4096, 65536) ragged batch with the english table
     Bb = 4096
@@ -1321,6 +1380,8 @@ def compare_automaton(torch, np, port: Port, seed: int) -> dict:
         hold(A.count_automaton(batch, lengths, auto, end_min=end_min, use_kernel=True),
              A.count_automaton(batch, lengths, auto, end_min=end_min, use_kernel=False),
              f"english8192 batch counts end_min={end_min}")
+        hold_counts(batch, lengths, end_min, auto, f"english8192 batch {Bb}x{Lb}",
+                    dtypes=end_min is None, persistent=True)
     del batch
     # the windows stream_count hands the automaton: main-dict's 8192 english
     # patterns over three full windows and a short fourth of host english
@@ -1346,10 +1407,46 @@ def compare_automaton(torch, np, port: Port, seed: int) -> dict:
         hold(A.count_automaton(text, lengths, auto, end_min=end_min, use_kernel=True),
              A.count_automaton(text, lengths, auto, end_min=end_min, use_kernel=False),
              f"stream window {i} counts end_min={end_min}")
+        hold_counts(text, lengths, end_min, auto, f"stream window {i}", dtypes=i == 0)
     stream = [{"shape": list(t.shape), "length": int(ln[0]), "end_min": e}
               for t, ln, e, _ in windows]
     return {"cases": done, "max_abs_err": max_err, "tables": tables, "main_path_shapes": big,
-            "stream_windows": stream}
+            "stream_windows": stream,
+            "counts_variants": [dict(zip(("table_shared", "mode", "lanes", "entry_bytes",
+                                          "one_block"), v)) for v in sorted(set(counts_seen))]}
+
+
+# Shared memory one block of the H100 can opt in to (232,448 bytes)
+SMEM_MAX = 232_448
+
+
+def acscan_tiles(x, config: dict) -> int:
+    """The (row, tile)s of one acscan launch over x with ``config``."""
+    lanes_row = -(-x.shape[1] // config["seg"])
+    return x.shape[0] * -(-lanes_row // (config["lanes"] * config["threads"]))
+
+
+def acscan_variants(auto, kt, table, counts: bool = True) -> list:
+    """The forced variants of the acscan launcher whose shared memory (the
+    class map, and the table and the histogram where they are placed there)
+    fits one block: table in shared or global memory, histogram in shared
+    or global memory (counts mode), 1 or 4 lanes a thread, each at the
+    block width the launcher picks for it; and one block an SM (more L1)
+    forced on and off."""
+    r16 = lambda v: -(-v // 16) * 16
+    table_bytes = r16(table.element_size() * table.numel())
+    out = []
+    for tab in ("shared", "global"):
+        for hist in (("shared", "global") if counts else (None,)):
+            need = (512 + (table_bytes if tab == "shared" else 0)
+                    + (r16(4 * kt.n_term) if hist == "shared" else 0))
+            if need <= SMEM_MAX:
+                for lanes in (1, 4):
+                    v = {"_table": tab, "_lanes": lanes}
+                    if counts:
+                        v["_hist"] = hist
+                    out.append(v)
+    return out + ([{"_one_block": True}, {"_one_block": False}] if counts else [])
 
 
 def dict_patterns(np, corpus, host, P: int, seed: int) -> list:
@@ -1397,7 +1494,8 @@ class AutomatonSpy:
 def main_dict(torch, np, port: Port, seed: int, sizes: dict) -> dict:
     """Dictionary-scale counting at full size, each run between a counter
     reset and a counter read with the engine's automaton routes counted by a
-    spy (acscan launches must equal them), each output then checked against
+    spy (acscan counts-mode launches must equal them, and nothing else
+    launches), each output then checked against
     an independent path: count_many with automaton=False plans on a 16 MiB
     slice, and epsm.count for 16 sampled patterns over the whole text."""
     engine, mp, corpus, epsm = port.engine, port.mp, port.corpus, port.epsm
@@ -1416,13 +1514,14 @@ def main_dict(torch, np, port: Port, seed: int, sizes: dict) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         got = port.launches()
-        check(got["acscan"] == spy.calls,
-              f"{label}: acscan launches {got['acscan']} != automaton routes {spy.calls}")
-        check(all(v == 0 for k, v in got.items() if k != "acscan"),
-              f"{label}: another kernel launched: {got}")
+        check(got["acscan_counts"] == spy.calls,
+              f"{label}: acscan counts-mode launches {got['acscan_counts']} != automaton "
+              f"routes {spy.calls}")
+        check(all(v == 0 for k, v in got.items() if k != "acscan_counts"),
+              f"{label}: another kernel or mode launched: {got}")
         for k, v in got.items():
             launches[k] += v
-        report[label] = {"wall_s": wall, "acscan_launches": got["acscan"],
+        report[label] = {"wall_s": wall, "acscan_counts_launches": got["acscan_counts"],
                          "automaton_routes": spy.calls,
                          "peak_gib": torch.cuda.max_memory_allocated() / GIB}
         return out
@@ -1628,8 +1727,9 @@ def main_serve(torch, np, port: Port, seed: int, sizes: dict) -> dict:
         qp.canonical_union = orig_union
     got = port.launches()
     routes = spy.calls
-    check(got["acscan"] == routes >= 1,
-          f"serve: acscan launches {got['acscan']} != automaton routes {routes} (need >= 1)")
+    check(got["acscan_counts"] == routes >= 1 and got["acscan"] == 0,
+          f"serve: acscan counts-mode launches {got['acscan_counts']} != automaton routes "
+          f"{routes} (need >= 1; states mode {got['acscan']})")
     failed = [(cid, mode, r) for cid, mode, _, r in answers if not r["ok"]]
     check(not failed and len(answers) == n_jobs, f"serve: {len(answers)} answers, failed: {failed[:3]}")
     # each answer against the query's patterns counted alone
@@ -1663,7 +1763,7 @@ def main_serve(torch, np, port: Port, seed: int, sizes: dict) -> dict:
                    if name == "engine_dispatch"]
     return emit({"phase": "main-serve", "queries": len(answers), "dispatches": stats["dispatches"],
                  "coalescing_ratio": stats["coalescing_ratio"], "union_sizes": unions,
-                 "automaton_routes": routes, "acscan_launches": got["acscan"],
+                 "automaton_routes": routes, "acscan_counts_launches": got["acscan_counts"],
                  "launches": got, "wall_s": wall, "p50_ms": float(np.percentile(lat, 50)),
                  "p99_ms": float(np.percentile(lat, 99)),
                  "ms_by_kind": {k: {"queries": len(v), "p50": float(np.median(v)), "max": max(v)}
@@ -1672,47 +1772,114 @@ def main_serve(torch, np, port: Port, seed: int, sizes: dict) -> dict:
                  "trace": val.stdout.strip()})
 
 
+def acscan_bounds(auto, kt, B: int, n: int, transitions: int, mode: str) -> tuple:
+    """(least ms, what binds) of one acscan launch, counted as work the same
+    whatever implements it.  Bytes: the text of the transitions the
+    sequential scan needs read once, the table once at its stored width,
+    and the int32 states (4 B n, states mode) or the histogram
+    (4 B n_term, counts mode) written once.  Operations: ~4 integer
+    operations a transition (class load, multiply-add, table load, and the
+    store or the compare) over those transitions."""
+    table = kt.counts if mode == "counts" else kt.states
+    out = 4 * B * kt.n_term if mode == "counts" else 4 * B * n
+    return bound_of(transitions + table.element_size() * table.numel() + out, 4 * transitions)
+
+
 def timing_acscan(torch, np, port: Port, seed: int, n: int) -> dict:
-    """The acscan kernel with the english 8192-pattern table (global
-    memory, L2-resident) and the genome 2048-pattern table (shared memory)
-    over n bytes, beside the plain version and the bound; returns the
-    english row."""
+    """Both modes of the acscan kernel at the main path's shapes: n bytes of
+    english with the 8192-pattern table (uint16, in global memory: L2) and
+    of genome with the 2048-pattern table (uint16, in shared memory), the
+    random 10,000-pattern table (int32, HBM) on bench_dictionary's
+    adversarial texture (the dictionary tiled, which main-dict sends to the
+    automaton) of n bytes, blocked's
+    (4096, 65536) ragged english batch, and one 4 MiB english window of
+    the stream with end_min.  For each: the default launch's kernel time
+    (queued) and call time, both modes' bounds, every forced variant that
+    fits and the int32 copy of a uint16 table (counts mode), and on the
+    two n-byte texts the plain versions and
+    count_automaton.  Returns the english row (the kernels line: the
+    counts mode, which the main path launches)."""
     A, corpus = port.automaton, port.corpus
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 17)
+    english = english_on_card(torch, np, corpus, n, seed)
+    ehost = english[: 4 * MIB].cpu().numpy()
+    e_auto = A.compile_automaton(dict_patterns(np, corpus, ehost, 8192, seed + 14), device=DEVICE)
+    genome = genome_text(torch, n, gen)
+    g_auto = A.compile_automaton(
+        dict_patterns(np, corpus, genome[: 4 * MIB].cpu().numpy(), 2048, seed + 12), device=DEVICE)
+    rdict = random_dictionary(np, seed, 10_000)
+    flat = torch.from_numpy(rdict.reshape(-1).copy()).to(DEVICE)
+    adversarial = flat.repeat(-(-n // flat.numel()))[:n].contiguous()
+    Bb, Lb = 4096, n // 4096
+    lengths_b = torch.randint(1, Lb + 1, (Bb,), generator=gen, device=DEVICE)
+    shapes = (  # name, automaton, text, lengths, end_min, plain versions timed
+        ("english8192", e_auto, english[None, :], None, None, True),
+        ("genome2048", g_auto, genome[None, :], None, None, True),
+        ("random10k", A.compile_automaton(rdict, device=DEVICE), adversarial[None, :], None, None,
+         False),
+        ("english8192_batch", e_auto, english.view(Bb, Lb), lengths_b, None, False),
+        ("english8192_window", e_auto, english[None, : 4 * MIB], None, e_auto.max_m - 1, False),
+    )
     rows = {}
-    for name in ("english8192", "genome2048"):
-        if name == "english8192":
-            text = english_on_card(torch, np, corpus, n, seed)
-            pats = dict_patterns(np, corpus, text[: 4 * MIB].cpu().numpy(), 8192, seed + 14)
-        else:
-            text = genome_text(torch, n, gen)
-            pats = dict_patterns(np, corpus, text[: 4 * MIB].cpu().numpy(), 2048, seed + 12)
-        auto = A.compile_automaton(pats, device=DEVICE)
-        x = text[None, :]
+    for name, auto, x, lengths, end_min, plain in shapes:
+        B, nn = x.shape
+        lengths = torch.full((B,), nn, device=DEVICE) if lengths is None else lengths
+        kt = A.kernel_tables(auto)
+        cargs = (auto.classes, kt.counts, auto.n_classes, kt.n_term, auto.max_m, lengths)
 
-        def call():
-            return port.acscan_cuda(x, auto.classes, auto.delta, auto.n_classes, auto.max_m)
+        def counts(table=kt.counts, **v):
+            return port.acscan_counts_cuda(x, auto.classes, table, *cargs[2:], end_min=end_min, **v)
 
-        kernel_ms = time_cuda(torch, call, 20, queued=True)
-        config = dict(port.acscan_cuda.config)
-        call_ms = time_cuda(torch, call, 20)
-        plain_ms = time_cuda(torch, lambda: A.automaton_states(x, auto, use_kernel=False), 5)
-        count_ms = time_cuda(torch, lambda: A.count_automaton(x, [n], auto), 5)
-        # bound: the text read once, the states written once, the table read
-        # once; operations: ~4 integer operations a step over every lane's
-        # seg + max_m - 1 steps
-        seg = config["seg"]
-        lanes = -(-n // seg)
-        cells = auto.n_states * auto.n_classes
-        bound_ms, bound_by = bound_of(5 * n + 4 * cells, 4 * lanes * (seg + auto.max_m - 1))
-        rows[name] = emit({
-            "phase": "timing", "kernel": "acscan", "table": name, "n": n, "states": auto.n_states,
-            "classes": auto.n_classes, "table_bytes": 4 * cells, "config": config,
-            "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "count_automaton_ms": count_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "GB_per_s": n / (kernel_ms * 1e-3) / 1e9})
-        del text, x
-    return rows["english8192"]
+        def states(**v):
+            return port.acscan_cuda(x, auto.classes, kt.states, auto.n_classes, auto.max_m, **v)
+
+        row = {"phase": "timing", "kernel": "acscan", "table": name, "shape": [B, nn],
+               "end_min": end_min, "states": auto.n_states, "classes": auto.n_classes,
+               "n_term": kt.n_term, "entry_bytes": kt.counts.element_size()}
+        row["counts_ms"] = time_cuda(torch, counts, 20, queued=True)
+        row["counts_config"] = dict(port.acscan_counts_cuda.config)
+        row["counts_call_ms"] = time_cuda(torch, counts, 20)
+        first = max(0, (end_min or 0) - (auto.max_m - 1))
+        transitions = int((lengths.clamp(0, nn) - first).clamp(min=0).sum())
+        row["counts_bound_ms"], row["counts_bound_by"] = acscan_bounds(
+            auto, kt, B, nn, transitions, "counts")
+        if end_min is None:
+            row["states_ms"] = time_cuda(torch, states, 20, queued=True)
+            row["states_config"] = dict(port.acscan_cuda.config)
+            row["states_call_ms"] = time_cuda(torch, states, 20)
+            row["states_bound_ms"], row["states_bound_by"] = acscan_bounds(
+                auto, kt, B, nn, B * nn, "states")
+        variants = {}
+        for v in acscan_variants(auto, kt, kt.counts):
+            variants["counts " + " ".join(f"{k[1:]}={w}" for k, w in v.items())] = time_cuda(
+                torch, lambda v=v: counts(**v), 10, queued=True)
+        for threads in (128, 256, 512, 1024):
+            for one in (False, True):
+                variants[f"counts threads={threads} one_block={one}"] = time_cuda(
+                    torch, lambda t=threads, o=one: counts(_threads=t, _one_block=o), 10,
+                    queued=True)
+        if kt.counts.dtype != torch.int32:
+            wide = kt.counts.int()
+            variants["counts int32 table"] = time_cuda(torch, lambda: counts(wide), 10, queued=True)
+            del wide
+        if end_min is None:
+            for v in acscan_variants(auto, kt, kt.states, counts=False):
+                variants["states " + " ".join(f"{k[1:]}={w}" for k, w in v.items())] = time_cuda(
+                    torch, lambda v=v: states(**v), 10, queued=True)
+        row["variants_ms"] = variants
+        if plain:
+            row["counts_plain_ms"] = time_cuda(
+                torch, lambda: port.acscan_counts_ref(x, *cargs, end_min=end_min), 3)
+            row["states_plain_ms"] = time_cuda(
+                torch, lambda: port.acscan_states_ref(x, auto.classes, kt.states, auto.n_classes,
+                                                      auto.max_m), 3)
+            row["count_automaton_ms"] = time_cuda(
+                torch, lambda: A.count_automaton(x, lengths, auto, end_min=end_min), 5)
+        rows[name] = emit(row)
+    del english, genome, adversarial, shapes
+    e = rows["english8192"]
+    return {"mode": "counts", "kernel_ms": e["counts_ms"], "plain_ms": e["counts_plain_ms"],
+            "bound_ms": e["counts_bound_ms"], "bound_by": e["counts_bound_by"]}
 
 
 def main() -> int:
@@ -1788,7 +1955,8 @@ def main() -> int:
     t0 = time.perf_counter()
     served = main_serve(torch, np, port, args.seed, {"text": 256 * MIB})
     emit({"phase": "main-serve", "seconds": round(time.perf_counter() - t0, 3)})
-    launches["acscan"] = dicts["launches"]["acscan"] + served["acscan_launches"]
+    # the main path launches acscan's counts mode (count_automaton)
+    launches["acscan"] = dicts["launches"]["acscan_counts"] + served["acscan_counts_launches"]
     rows = timing(torch, port, args.seed, GIB)
     rows["multipattern"] = timing_multipattern(torch, port, args.seed, 8, 8 * MIB, 32)
     rows.update(timing_stream_approx(torch, np, port, args.seed, 64 * MIB,
@@ -1803,7 +1971,7 @@ def main() -> int:
                         "max_abs_err": compared["max_abs_err"][name], "match": True,
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": None})
+                        "library_ms": None, **({"mode": row["mode"]} if "mode" in row else {})})
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

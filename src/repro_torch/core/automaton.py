@@ -19,9 +19,11 @@ so nested patterns all fire).
 On a CUDA tensor the transition scan runs the hand-written ``acscan``
 kernel (``kernels/acscan``), on a CPU tensor its plain PyTorch version.
 Emission differs from the reference inside and not in its result: the
-reference scatters ``out_max`` times over every position; here a gated
-histogram of terminal states per row is multiplied out over the CSR, which
-gives the same integers at O(B * n_entries) instead of O(n * out_max).
+reference scatters ``out_max`` times over every position; here the
+kernel's counts mode sums a gated histogram of terminal states per row
+(no state array in device memory), which is multiplied out over the CSR:
+the same integers at O(B * n_entries) instead of O(n * out_max).  The
+kernel reads private tables (``kernel_tables``), built once per plan.
 """
 
 from __future__ import annotations
@@ -62,6 +64,10 @@ class AutomatonPlan:
     out_max: int           # max emissions at any single state
     max_m: int             # longest pattern (bounded-context radius)
     n_patterns: int        # output column count
+    # kernel_tables(plan), built at first use; not a field of the plan's
+    # contract (a copy made by to() builds its own)
+    _kernel: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                      compare=False)
 
     @property
     def device(self) -> torch.device:
@@ -234,21 +240,56 @@ def automaton_states(text, auto: AutomatonPlan, *, seg: Optional[int] = None,
         fn = ops.acscan_cuda
     else:
         fn = ops.acscan_states_ref
-    return fn(t, auto.classes, auto.delta, auto.n_classes, auto.max_m, seg=seg)
+    return fn(t, auto.classes, kernel_tables(auto).states, auto.n_classes, auto.max_m, seg=seg)
 
 
-def _emission(auto: AutomatonPlan):
-    """(state -> terminal index or -1 as int32, terminal index of each CSR
-    entry, number of terminal states): the states with an output list."""
+@dataclasses.dataclass(frozen=True)
+class KernelTables:
+    """The kernel's private tables of one AutomatonPlan, on its device.
+
+    ``counts`` renumbers the states so that the root stays 0 and the
+    n_term terminal states (those with an output list) are 1..n_term, in
+    plan order: "is terminal" is one compare and the histogram column is
+    the state - 1.  ``states`` keeps the plan's ids.  Both hold uint16
+    entries when the ids fit (n_states <= 65536), else int32."""
+
+    states: torch.Tensor   # (n_states * n_classes,) plan ids
+    counts: torch.Tensor   # (n_states * n_classes,) private ids
+    n_term: int
+    entry_t: torch.Tensor  # (n_entries,) int64: histogram column of each CSR entry
+
+
+def table_dtype(n_states: int) -> torch.dtype:
+    """uint16 exactly when every state id fits in 16 bits."""
+    return torch.uint16 if int(n_states) <= 1 << 16 else torch.int32
+
+
+def _build_kernel_tables(auto: AutomatonPlan) -> KernelTables:
+    S, C = auto.n_states, auto.n_classes
+    dev = auto.device
+    dtype = table_dtype(S)
+    delta = auto.delta.view(S, C).long()
     tot = auto.out_off[1:] - auto.out_off[:-1]
     term = tot > 0
-    tidx = torch.cumsum(term.to(torch.int32), 0, dtype=torch.int32) - 1
-    tidx = torch.where(term, tidx, torch.full_like(tidx, -1))
-    n_term = int(term.sum())
-    entry_state = torch.repeat_interleave(
-        torch.arange(auto.n_states, device=tot.device), tot.long(), output_size=auto.n_entries
-    )
-    return tidx, tidx[entry_state].long(), n_term
+    ids = torch.arange(S, device=dev)
+    term_ids, rest_ids = ids[term], ids[~term]  # the root (never terminal) leads rest_ids
+    order = torch.cat([rest_ids[:1], term_ids, rest_ids[1:]])
+    priv = torch.empty_like(order)
+    priv[order] = ids
+    counts = torch.empty_like(delta)
+    counts[priv] = priv[delta]
+    entry_state = torch.repeat_interleave(ids, tot.long(), output_size=auto.n_entries)
+    states = auto.delta if dtype == torch.int32 else auto.delta.to(dtype)
+    return KernelTables(states=states, counts=counts.reshape(-1).to(dtype),
+                        n_term=int(term_ids.numel()), entry_t=priv[entry_state] - 1)
+
+
+def kernel_tables(auto: AutomatonPlan) -> KernelTables:
+    """The plan's KernelTables, built at the first call and kept with it."""
+    kt = auto._kernel.get("tables")
+    if kt is None:
+        kt = auto._kernel["tables"] = _build_kernel_tables(auto)
+    return kt
 
 
 def count_automaton(text, lengths, auto: AutomatonPlan, *, end_min=None,
@@ -258,30 +299,40 @@ def count_automaton(text, lengths, auto: AutomatonPlan, *, end_min=None,
     Same semantics as the reference and as engine.count_many: an occurrence
     counts when it ENDS inside the row's true length, and ``end_min`` keeps
     only occurrences ending at or past it (the streaming seam gate).  The
-    scan is O(n) transitions; emission is one gated histogram of terminal
-    states per row, multiplied out over the CSR output lists."""
+    scan is O(n) transitions and sums a gated histogram of terminal states
+    per row (the ``acscan`` kernel's counts mode on a CUDA tensor, its plain
+    version on a CPU one; ``use_kernel`` as in ``automaton_states``), which
+    is multiplied out over the CSR output lists.  No call syncs the host
+    after the plan's first."""
+    from repro_torch.kernels.acscan import ops
+
     t = as_u8(text, auto.device)
     if t.ndim == 1:
         t = t[None, :]
     B, n = t.shape
-    dev = t.device
-    counts = torch.zeros((B, auto.n_patterns), dtype=torch.int64, device=dev)
     if n == 0 or B == 0:
-        return counts.to(torch.int32)
-    s = automaton_states(t, auto, seg=seg, use_kernel=use_kernel)
-    tidx, entry_t, n_term = _emission(auto)
-    lengths = torch.as_tensor(lengths).to(device=dev, dtype=torch.int64).reshape(B)
-    key = tidx.index_select(0, s.reshape(-1)).view(B, n)  # -1 for a silent state
-    del s
-    pos = torch.arange(n, device=dev)[None, :]
-    gate = (key >= 0) & (pos < lengths[:, None])
-    if end_min is not None:
-        gate &= pos >= int(end_min)
-    rows = torch.arange(B, device=dev)[:, None].expand(B, n)[gate]
-    hist = torch.bincount(rows * n_term + key[gate].long(), minlength=B * n_term).view(B, n_term)
-    del key, gate, rows
+        return torch.zeros((B, auto.n_patterns), dtype=torch.int32, device=t.device)
+    kt = kernel_tables(auto)
+    if use_kernel is None:
+        fn = ops.acscan_counts
+    elif use_kernel:
+        fn = ops.acscan_counts_cuda
+    else:
+        fn = ops.acscan_counts_ref
+    lengths = torch.as_tensor(lengths).to(device=t.device, dtype=torch.int64).reshape(B)
+    hist = fn(t, auto.classes, kt.counts, auto.n_classes, kt.n_term, auto.max_m, lengths,
+              end_min=end_min, seg=seg)
+    return _counts_from_hist(hist, auto)
+
+
+def _counts_from_hist(hist: torch.Tensor, auto: AutomatonPlan) -> torch.Tensor:
+    """int32 (B, n_patterns): a (B, n_term) terminal-state histogram
+    multiplied out over the plan's CSR output lists."""
+    kt = kernel_tables(auto)
+    B = hist.shape[0]
+    counts = torch.zeros((B, auto.n_patterns), dtype=torch.int64, device=hist.device)
     step = max(1, _EMIT_ELEMS // max(1, auto.n_entries))
     ids = auto.out_ids.long()
     for r in range(0, B, step):
-        counts[r : r + step].index_add_(1, ids, hist[r : r + step][:, entry_t])
+        counts[r : r + step].index_add_(1, ids, hist[r : r + step][:, kt.entry_t].long())
     return counts.to(torch.int32)

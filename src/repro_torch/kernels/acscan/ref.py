@@ -4,7 +4,9 @@
 ``core.automaton.automaton_states``: the text mapped to classes, cut into
 overlapping lane windows, and a loop of T = seg + max_m - 1 gathers over the
 (B, lanes) state vector, keeping the last seg states of each lane.  It is
-the plain version of the ``acscan`` kernel.  ``ac_states_ref`` (one
+the plain version of the ``acscan`` kernel's states mode, and
+``acscan_counts_ref`` (those states, gated and histogrammed by terminal
+state) of its counts mode.  ``ac_states_ref`` (one
 transition per byte, numpy) and ``count_ref`` (sliding-window counts) are
 copies of the reference's oracles in ``repro/kernels/acscan/ref.py``.
 """
@@ -17,9 +19,10 @@ import numpy as np
 import torch
 
 
-def acscan_states_ref(text: torch.Tensor, classes: torch.Tensor, delta: torch.Tensor,
+def acscan_states_ref(text: torch.Tensor, classes: torch.Tensor, table: torch.Tensor,
                       n_classes: int, max_m: int, *, seg: Optional[int] = None) -> torch.Tensor:
-    """int32 (B, n): the automaton state after each byte of each row."""
+    """int32 (B, n): the automaton state after each byte of each row, in the
+    ids of ``table`` (uint16 or int32 entries)."""
     from repro_torch.core.automaton import AC_SEG, _segment_classes
 
     seg = AC_SEG if seg is None else int(seg)
@@ -27,6 +30,7 @@ def acscan_states_ref(text: torch.Tensor, classes: torch.Tensor, delta: torch.Te
     if n == 0 or B == 0:
         return torch.zeros((B, n), dtype=torch.int32, device=text.device)
     ov = int(max_m) - 1
+    delta = table.to(torch.int32)
     win, lanes = _segment_classes(classes[text.long()], seg, ov)
     s = torch.zeros((B, lanes), dtype=torch.int32, device=text.device)
     out = torch.empty((B, lanes, seg), dtype=torch.int32, device=text.device)
@@ -35,6 +39,27 @@ def acscan_states_ref(text: torch.Tensor, classes: torch.Tensor, delta: torch.Te
         if t >= ov:
             out[:, :, t - ov] = s
     return out.view(B, lanes * seg)[:, :n]
+
+
+def acscan_counts_ref(text: torch.Tensor, classes: torch.Tensor, table: torch.Tensor,
+                      n_classes: int, n_term: int, max_m: int, lengths, *,
+                      end_min: Optional[int] = None, seg: Optional[int] = None) -> torch.Tensor:
+    """int32 (B, n_term): for each row b and terminal state 1 + t of
+    ``table`` (a private table with terminal states 1..n_term, root 0), the
+    positions end_min <= i < lengths[b] whose state is 1 + t."""
+    B, n = text.shape
+    dev = text.device
+    if n == 0 or B == 0:
+        return torch.zeros((B, int(n_term)), dtype=torch.int32, device=dev)
+    key = acscan_states_ref(text, classes, table, n_classes, max_m, seg=seg) - 1
+    lengths = torch.as_tensor(lengths).to(device=dev, dtype=torch.int64).reshape(B)
+    pos = torch.arange(n, device=dev)[None, :]
+    gate = (key >= 0) & (key < int(n_term)) & (pos < lengths[:, None])
+    if end_min is not None:
+        gate &= pos >= int(end_min)
+    rows = torch.arange(B, device=dev)[:, None].expand(B, n)[gate]
+    hist = torch.bincount(rows * int(n_term) + key[gate].long(), minlength=B * int(n_term))
+    return hist.view(B, int(n_term)).to(torch.int32)
 
 
 def ac_states_ref(text_row: np.ndarray, classes, delta, n_classes: int) -> np.ndarray:

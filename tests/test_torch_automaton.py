@@ -6,8 +6,11 @@ the compiled arrays and caps, the segmented scan against the sequential
 oracle (a pattern holding byte 0x00 included), counts with ragged lengths
 and the streaming seam gate, the adversarial flood that reroutes the
 shared pass to the automaton (a spy shows the port's route was reached),
-reference plans carried across, replication, and a streamed dictionary.
-The port runs on the CPU, where the acscan op runs its plain version; the
+reference plans carried across, replication, and a streamed dictionary;
+and the kernel's counts mode by its plain version (acscan_counts_ref) and
+the private tables it reads (renumbered, uint16 where the ids fit, built
+once per plan).  The port runs on the CPU, where the acscan ops run their
+plain versions; the
 reference's Pallas acscan kernel runs once, in interpret mode, on a tiny
 input.  No tolerance anywhere.
 """
@@ -25,8 +28,9 @@ from repro_torch.core import automaton as A
 from repro_torch.core import engine as E
 from repro_torch.core import stream as S
 from repro_torch.kernels.acscan import ops as acscan_ops
-from repro_torch.kernels.acscan.acscan import acscan_cuda, kernel_seg
-from repro_torch.kernels.acscan.ref import ac_states_ref, count_ref
+from repro_torch.kernels.acscan.acscan import acscan_counts_cuda, acscan_cuda, kernel_seg
+from repro_torch.kernels.acscan.ref import (ac_states_ref, acscan_counts_ref, acscan_states_ref,
+                                            count_ref)
 
 from conftest import make_text
 
@@ -302,3 +306,133 @@ def test_stream_count_dictionary_vs_reference(rng, monkeypatch):
     np.testing.assert_array_equal(got, want)
     assert got.dtype == np.int32 and len(calls) >= 4
     assert int(got[-1]) >= 8 and len(set(got[-70:].tolist())) == 1
+
+
+@pytest.mark.parametrize("case", ["zero_byte", "dict"])
+def test_acscan_counts_ref_vs_reference(rng, case):
+    """The counts mode's plain version, multiplied out over the CSR, equals
+    the reference's count_automaton: B > 1 ragged rows, end_min, and a
+    dictionary holding byte 0x00."""
+    if case == "zero_byte":
+        pats, sigma = _zero_byte_patterns(rng), 3
+    else:
+        pats, sigma = _dict_patterns(rng, 300, 6, 8), 8
+    auto, rauto = A.compile_automaton(pats, device=CPU), RA.compile_automaton(pats)
+    kt = A.kernel_tables(auto)
+    text = make_text(rng, 4 * 777, sigma).reshape(4, 777)
+    text[1, :9] = 0
+    lengths = np.array([777, 640, 0, 5])
+    for end_min in (None, 0, 100, 776):
+        hist = acscan_counts_ref(torch.from_numpy(text), auto.classes, kt.counts, auto.n_classes,
+                                 kt.n_term, auto.max_m, torch.from_numpy(lengths), end_min=end_min)
+        assert hist.dtype == torch.int32 and hist.shape == (4, kt.n_term)
+        want = _np(RA.count_automaton(text, lengths, rauto, end_min=end_min))
+        np.testing.assert_array_equal(A._counts_from_hist(hist, auto).numpy(), want,
+                                      err_msg=f"end_min={end_min}")
+        # any segment width, the kernel's own included, gives the same histogram
+        for s in (7, kernel_seg(auto.max_m - 1)):
+            assert torch.equal(hist, acscan_counts_ref(
+                torch.from_numpy(text), auto.classes, kt.counts, auto.n_classes, kt.n_term,
+                auto.max_m, lengths, end_min=end_min, seg=s))
+
+
+def _plan_ids(priv_tab: np.ndarray, plan_tab: np.ndarray) -> np.ndarray:
+    """The plan id of each private id, found by walking the private and the
+    plan's (n_states, n_classes) tables from the root together; asserts
+    that every transition agrees, so the private table is the plan's with
+    its states relabelled."""
+    order = np.full(plan_tab.shape[0], -1, np.int64)
+    order[0] = 0
+    frontier = np.array([0])
+    while frontier.size:
+        p, q = priv_tab[frontier].ravel(), plan_tab[order[frontier]].ravel()
+        fresh = order[p] < 0
+        new, first = np.unique(p[fresh], return_index=True)
+        order[new] = q[fresh][first]
+        np.testing.assert_array_equal(order[p], q)
+        frontier = new
+    assert sorted(order.tolist()) == list(range(plan_tab.shape[0]))
+    return order
+
+
+def test_kernel_tables_renumbered_and_narrow(rng):
+    """The private tables: root 0, the terminal states (those with an output
+    list) 1..n_term in plan order; a plain scan over the renumbered uint16
+    table, mapped back, is the sequential scan; uint16 exactly when the ids
+    fit."""
+    pats = _zero_byte_patterns(rng)
+    auto, rauto = A.compile_automaton(pats, device=CPU), RA.compile_automaton(pats)
+    kt = A.kernel_tables(auto)
+    S, C = auto.n_states, auto.n_classes
+    assert kt.counts.dtype == kt.states.dtype == torch.uint16
+    tot = (auto.out_off[1:] - auto.out_off[:-1]).numpy()
+    assert kt.n_term == int((tot > 0).sum())
+    order = _plan_ids(kt.counts.long().numpy().reshape(S, C), auto.delta.numpy().reshape(S, C))
+    np.testing.assert_array_equal(order[1 : kt.n_term + 1], np.flatnonzero(tot > 0))
+    # the emission's columns follow the renumbering: entry e of state s is column priv[s] - 1
+    entry_state = np.repeat(np.arange(S), tot)
+    np.testing.assert_array_equal(order[kt.entry_t.numpy() + 1], entry_state)
+    np.testing.assert_array_equal(kt.states.long().numpy(), auto.delta.numpy())
+    np.testing.assert_array_equal(  # the renumbered table is the plan's, relabelled
+        order[kt.counts.long().numpy().reshape(S, C)], auto.delta.numpy().reshape(S, C)[order])
+    text = make_text(rng, 2 * 700, 3).reshape(2, 700)
+    text[0, :9] = 0
+    priv = acscan_states_ref(torch.from_numpy(text), auto.classes, kt.counts, C, auto.max_m)
+    got = order[priv.numpy()]
+    np.testing.assert_array_equal(got, _np(RA.automaton_states(text, rauto)))
+    for b in range(2):
+        np.testing.assert_array_equal(
+            got[b], ac_states_ref(text[b], auto.classes.numpy(), auto.delta.numpy(), C))
+    # the dtype switches exactly past 65536 states (ids 0..65535 fit in uint16)
+    assert A.table_dtype(1 << 16) == torch.uint16 and A.table_dtype((1 << 16) + 1) == torch.int32
+    big = A.compile_automaton([rng.randint(0, 4, size=40).astype(np.uint8) for _ in range(1900)],
+                              device=CPU)
+    assert big.n_states > 1 << 16
+    kb = A.kernel_tables(big)
+    assert kb.counts.dtype == torch.int32 and kb.states is big.delta
+    Sb = big.n_states
+    ob = _plan_ids(kb.counts.numpy().reshape(Sb, -1), big.delta.numpy().reshape(Sb, -1))
+    tb = (big.out_off[1:] - big.out_off[:-1]).numpy()
+    np.testing.assert_array_equal(ob[1 : kb.n_term + 1], np.flatnonzero(tb > 0))
+
+
+def test_acscan_counts_op_dispatch_on_cpu(rng):
+    """On a CPU tensor the counts op and count_automaton take the plain
+    version; the counts kernel's wrapper refuses a CPU tensor."""
+    pats = _zero_byte_patterns(rng)
+    auto = A.compile_automaton(pats, device=CPU)
+    kt = A.kernel_tables(auto)
+    text = torch.from_numpy(make_text(rng, 2 * 300, 3).reshape(2, 300))
+    lengths = torch.tensor([300, 123])
+    args = (text, auto.classes, kt.counts, auto.n_classes, kt.n_term, auto.max_m, lengths)
+    before = (acscan_counts_cuda.launches, acscan_cuda.launches)
+    got = acscan_ops.acscan_counts(*args, end_min=17)
+    assert torch.equal(got, acscan_counts_ref(*args, end_min=17))
+    assert torch.equal(A.count_automaton(text, lengths, auto, end_min=17),
+                       A._counts_from_hist(got, auto))
+    with pytest.raises(ValueError, match="CUDA"):
+        acscan_counts_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        A.count_automaton(text, lengths, auto, use_kernel=True)
+    assert (acscan_counts_cuda.launches, acscan_cuda.launches) == before
+
+
+def test_kernel_tables_built_once_per_plan(rng, monkeypatch):
+    """The private tables and the emission's columns are built at a plan's
+    first call and reused by every later call (a spy counts the builds); a
+    copy of the plan builds its own."""
+    pats = _zero_byte_patterns(rng)
+    auto = A.compile_automaton(pats, device=CPU)
+    builds = []
+    orig = A._build_kernel_tables
+    monkeypatch.setattr(A, "_build_kernel_tables", lambda a: builds.append(a) or orig(a))
+    text = torch.from_numpy(make_text(rng, 3 * 200, 3).reshape(3, 200))
+    first = A.count_automaton(text, [200, 100, 50], auto)
+    for end_min in (None, 10, 150):
+        A.count_automaton(text, [200, 100, 50], auto, end_min=end_min)
+    A.automaton_states(text, auto)
+    assert builds == [auto]
+    copy = auto.to(CPU)
+    assert torch.equal(A.count_automaton(text, [200, 100, 50], copy), first)
+    assert len(builds) == 2 and builds[1] is copy
+    assert A.kernel_tables(copy) is A.kernel_tables(copy)

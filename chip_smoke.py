@@ -21,12 +21,20 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 PyTorch, with end_min) bit for bit: windows of 1 byte to
                 64 MiB, L < window length, seam bounds prev_ov, a/b/c/x group
                 mixes, m at the eligibility edges, a 16 MiB flood, patterns
-                ending in 0x00, k in {1, 2, 127}, and the main stream's own
-                112-pattern set at the window the stream cuts, k = 0 and 1;
-  compare-approx the approx kernel against its plain version: m 1..127, k 1..m,
-                LUT gate on and off, flood, trailing 0x00, ragged lengths,
-                70000 rows, an unaligned row view, and end_min through the
-                engine's k-mismatch mask route;
+                ending in 0x00, k in {1, 2, 127}, the main stream's own
+                112-pattern set at the window the stream cuts, k = 0 and 1,
+                and the private pattern-id tables: duplicate patterns, a 'b'
+                plan with colliding fingerprints, 'a' and 'b' groups of 33
+                and 512 patterns, 25 'a' groups of 512;
+                every spec's smem_bytes held equal to the launcher's;
+  compare-approx the approx kernel against its plain version: m 1..127, k 0..m,
+                both paths (the pigeonhole filter and the first-word path,
+                forced), LUT gate on and off, 40 and 70 patterns (W > 1),
+                up to 27 pieces at W > 1 (the piece rows' shared memory
+                held equal to the launcher's),
+                flood, trailing 0x00, ragged lengths, 70000 rows, an
+                unaligned row view, and end_min through the engine's
+                k-mismatch mask route;
   compare-automaton the acscan kernel's two modes against their plain
                 versions: automaton states and terminal-state histograms of
                 tables in shared memory (genome, 2048 patterns), in L2
@@ -78,7 +86,11 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 so they exclude the wrapper's host time) beside the plain
                 versions' times and the bounds, and the times of epsm.find and
                 epsm.count around the EPSM kernels; megascan at the stream's
-                window (the kernels line) and on one 64 MiB window; acscan's
+                window (the kernels line) and on one 64 MiB window, with
+                call_ms and its host share, the restated bound beside the
+                first design's own-algorithm count (ops_per_position_pr13);
+                approx beside its
+                first-word path; acscan's
                 states and counts modes beside both bounds, and every forced
                 variant, at the main path's shapes: 256 MiB english (the
                 counts mode there is the kernels line), genome and
@@ -94,6 +106,7 @@ nonzero when no CUDA device is available or the port's package is missing.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gzip
 import json
 import logging
@@ -178,6 +191,7 @@ class Port:
         from repro_torch.kernels.megascan import ops as ms_ops
         from repro_torch.kernels.megascan.megascan import megascan_cuda
         from repro_torch.kernels.megascan.ref import megascan_count_window_ref
+        from repro_torch.kernels.approx import approx as ax_kernel
         from repro_torch.kernels.approx import ops as ax_ops
         from repro_torch.kernels.approx.approx import approx_cuda
         from repro_torch.kernels.approx.ref import approx_batched_ref
@@ -194,6 +208,7 @@ class Port:
         self.stream, self.counting, self.Recorder = stream, counting, Recorder
         self.ms_ops, self.ms_plain = ms_ops, megascan_count_window_ref
         self.ax_ops, self.ax_cuda, self.ax_plain = ax_ops, approx_cuda, approx_batched_ref
+        self.ax_kernel = ax_kernel
         self.automaton, self.acscan_cuda = automaton, acscan_cuda
         self.acscan_counts_cuda, self.acscan_counts_ref = acscan_counts_cuda, acscan_counts_ref
         self.acscan_states_ref = acscan_states_ref
@@ -626,11 +641,19 @@ def compare_megascan(torch, np, port: Port, seed: int) -> dict:
     engine, ms = port.engine, port.ms_ops
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 3)
     rs = np.random.RandomState(seed + 3)
-    done, max_err = {"cases": 0, "ineligible": 0}, 0
+    done, max_err = {"cases": 0, "ineligible": 0, "smem_checked": 0}, 0
+
+    lib = port.build.load("megascan")
+    lib.megascan_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.megascan_smem_bytes.restype = ctypes.c_longlong
 
     def spec_of(plans, k=None):
         spec = ms.build_mega_spec(plans, k=k)
         check(spec is not None, f"megascan spec None for m={[p.m for p in plans]} k={k}")
+        # the spec's shared memory is the launcher's
+        smem = lib.megascan_smem_bytes(spec.halo_back, spec.halo_fwd, spec.p_total)
+        check(smem == spec.smem_bytes, f"smem {spec.smem_bytes} != launcher's {smem}")
+        done["smem_checked"] += 1
         return spec
 
     def hold(window, plans, spec, L, ov, label):
@@ -731,6 +754,36 @@ def compare_megascan(torch, np, port: Port, seed: int) -> dict:
         trap = hold(text, plans, spec, text.numel() - 1, 0, f"zero-padding trap k={k}")
         if k == 0:
             check(int((full - trap).min()) == 1, "zero-padding trap: the end occurrence counted")
+    # the private pattern-id tables: duplicate patterns, a 'b' plan whose
+    # fingerprints collide (no lut_pid: the private bitmask), 'a' groups of
+    # 33 and 512 patterns (W = 2 and 16) and 'b' groups of 512, 25 copies
+    # of the 512-pattern 'a' plan; n % 4096 != 0, L < n and ov > 0
+    n = 1_000_003
+    window = random_text(torch, n, 16, gen)
+    host = window.cpu().numpy()
+    grams = np.unique(np.lib.stride_tricks.sliding_window_view(host[:200_000], 3), axis=0)
+    words = np.unique(np.lib.stride_tricks.sliding_window_view(host[:200_000], 7), axis=0)
+    dup = pats_from(host, (2, 3, 6, 9, 16), per=3, sigma=16)
+    dup += [dup[0], dup[4], dup[4], dup[8], dup[13]]
+    sets = {
+        "duplicates": (engine.compile_patterns(dup, device=DEVICE), None),
+        "nondistinct_b": (engine.compile_patterns(pats_from(host, (5, 7, 12), per=40, sigma=16),
+                                                  kbits=6, device=DEVICE), None),
+        "a33_b33": (engine.compile_patterns(list(grams[rs.permutation(len(grams))[:33]])
+                                            + list(words[:33]), device=DEVICE), None),
+        "a512_b512": (engine.compile_patterns(list(grams[rs.permutation(len(grams))[:512]])
+                                              + list(words[rs.permutation(len(words))[:512]]),
+                                              automaton=False, device=DEVICE), None),
+    }
+    a512 = [p for p in sets["a512_b512"][0] if p.m == 3]
+    sets["a512_x25"] = (a512 * 25, None)  # 25 'a' tables of 8 KB, 12,800 counters
+    check(any(not p.distinct and p.m > 3 for p in sets["nondistinct_b"][0]), "no colliding 'b' plan")
+    check(sets["a512_b512"][0][1].lut_pid is None, "the 512-pattern 'b' plan is bucketed")
+    for label, (plans, _) in sets.items():
+        spec = spec_of(plans)
+        for L, ov in ((n, 0), (n - 37, 13), (n - 4096, 777), (n, n - 100_000)):
+            hold(window, plans, spec, L, ov, f"{label} L={L} ov={ov}")
+        done[label] = 1
     return {"cases": done, "max_abs_err": max_err}
 
 
@@ -740,7 +793,7 @@ def compare_approx(torch, np, port: Port, seed: int) -> dict:
     (gate forced on and off)."""
     engine = port.engine
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 4)
-    done, max_err = {"op": 0, "wrapper": 0, "engine": 0}, 0
+    done, max_err = {"op": 0, "wrapper": 0, "engine": 0, "pieces": 0}, 0
 
     def hold(got, want, label):
         nonlocal max_err
@@ -757,16 +810,21 @@ def compare_approx(torch, np, port: Port, seed: int) -> dict:
         return torch.tensor([n, max(0, n - 5), n // 2], dtype=torch.int32, device=DEVICE)
 
     def wrapper_case(texts, ps, k, lengths, label):
+        """The rule's path, and the first-word path forced, gate on and off."""
         (plan,) = engine.compile_patterns(list(ps.cpu().numpy()), k=max(1, min(k, 2)),
                                           automaton=False, device=DEVICE)
         luts = [None]
         if plan.relaxed_lut is not None and k <= plan.k:
             luts.append(plan.relaxed_lut)
+        want = port.ax_plain(texts, ps, k, lengths)
+        P, m = ps.shape
         for lut in luts:
-            got = port.ax_cuda(texts, plan.patterns, plan.anchors, k, lut, kbits=plan.kbits,
-                               lengths=lengths)
-            hold(got, port.ax_plain(texts, ps, k, lengths), f"{label} gate={lut is not None}")
-            done["wrapper"] += 1
+            for forced in (None, False):
+                got = port.ax_cuda(texts, plan.patterns, plan.anchors, k, lut, kbits=plan.kbits,
+                                   lengths=lengths, _pieces=forced)
+                hold(got, want, f"{label} gate={lut is not None} pieces={forced}")
+                done["wrapper"] += 1
+                done["pieces"] += forced is None and port.ax_kernel.use_pieces(m, k, P)
 
     for n in (1, 4095, 4097, 1_000_003):
         for sigma in (4, 256):
@@ -779,7 +837,7 @@ def compare_approx(torch, np, port: Port, seed: int) -> dict:
                     starts = torch.randint(0, n - m + 1, (4,), generator=gen, device=DEVICE)
                     ps = torch.stack([texts[0, s : s + m] for s in starts.tolist()])
                     ps[1, m // 2] ^= 1  # one mismatch
-                    for k in sorted({1, 2, 3, m}):
+                    for k in sorted({0, 1, 2, 3, m}):
                         label = f"n={n} sigma={sigma} B={B} m={m} k={k}"
                         hold(port.ax_ops.approx_batched(texts, ps, k, lengths),
                              port.ax_plain(texts, ps, k, lengths), label)
@@ -793,6 +851,36 @@ def compare_approx(torch, np, port: Port, seed: int) -> dict:
                 hold(port.ax_ops.approx_batched(view, ps, 1), port.ax_plain(view, ps, 1),
                      f"unaligned n={n}")
                 done["op"] += 1
+    # W > 1: 40 and 70 patterns (two and three bitmask words), both paths,
+    # k = 0..3, ragged rows
+    n = 1_000_003
+    texts = random_text(torch, 3 * n, 4, gen).view(3, n)
+    lengths = ragged(3, n)
+    for P, m in ((40, 16), (70, 24), (40, 13)):
+        starts = torch.randint(0, n - m + 1, (P,), generator=gen, device=DEVICE).tolist()
+        ps = torch.stack([texts[i % 3, s : s + m] for i, s in enumerate(starts)])
+        ps[1::3, m // 2] ^= 1
+        for k in (0, 1, 2, 3):
+            wrapper_case(texts, ps, k, lengths, f"W>1 P={P} m={m} k={k}")
+            hold(port.ax_ops.approx_batched(texts, ps, k, lengths),
+                 port.ax_plain(texts, ps, k, lengths), f"W>1 op P={P} m={m} k={k}")
+            done["op"] += 1
+    # W > 1 with many pieces: the piece rows past 48 KB of shared memory, at
+    # the rule's edge (27 pieces of m = 127 fit, 28 do not); the launcher's
+    # shared memory is the rule's
+    lib = port.build.load("approx")
+    lib.approx_pieces_smem_bytes.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+    lib.approx_pieces_smem_bytes.restype = ctypes.c_longlong
+    for P, m, k in ((40, 64, 7), (40, 127, 26), (40, 127, 27), (32, 127, 30)):
+        want_smem = port.ax_kernel.pieces_smem_bytes(m, k, P)
+        check(lib.approx_pieces_smem_bytes(m, k, P) == want_smem,
+              f"approx smem P={P} m={m} k={k}: {want_smem} != launcher's")
+        check(port.ax_kernel.use_pieces(m, k, P) == (k != 27), f"approx rule P={P} m={m} k={k}")
+        starts = torch.randint(0, n - m + 1, (P,), generator=gen, device=DEVICE).tolist()
+        ps = torch.stack([texts[i % 3, s : s + m] for i, s in enumerate(starts)])
+        ps[1::3, m // 2] ^= 1
+        wrapper_case(texts, ps, k, lengths, f"many pieces P={P} m={m} k={k}")
+    check(done["pieces"] > 0, "no compare case took the pigeonhole filter")
     # more rows than a grid's y extent (65535): the kernel loops over rows
     texts = random_text(torch, 70_000 * 37, 4, gen).view(70_000, 37)
     lengths = torch.randint(0, 38, (70_000,), generator=gen, device=DEVICE, dtype=torch.int32)
@@ -1089,12 +1177,10 @@ def bound_of(moved_bytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mega_bound_ms(torch, port: Port, window, plans, spec) -> tuple:
-    """(least ms, what binds, operations per position) of one megascan
-    launch over ``window``.  Bytes: the window read once and the counts
-    written once.  Operations: the integer operations the kernel issues at
-    every position whatever verification finds, counted from the plan set's
-    shapes and this window's warp-gate hits:
+def mega_ops_first_design(torch, port: Port, window, plans, spec) -> float:
+    """Integer operations per position of the first megascan design, counted
+    from the plan set's shapes and this window's warp-gate hits (kept
+    beside the restated bound so that the change of yardstick shows):
       'a'  3 a pattern (mask, compare, add);
       'b'  the fingerprint chain, 3 a strided word the chain has not yet
            reached (shared across groups), 3 for the tail word, 6 for the
@@ -1104,8 +1190,7 @@ def mega_bound_ms(torch, port: Port, window, plans, spec) -> tuple:
            probe), one block a stride;
       'x'  the 'b' fingerprint when the relaxed LUT gates the group, then 5
            a pattern (__vcmpne4, popcount, shift, compare, merge) in the
-           warps it lets through (all warps without the gate).
-    Verification at candidates is left out, so the count is a lower bound."""
+           warps it lets through (all warps without the gate)."""
     index = port.engine.build_index(window)
     per_pos, chain = 0.0, 0
     for plan, g in zip(plans, spec.groups):
@@ -1122,8 +1207,26 @@ def mega_bound_ms(torch, port: Port, window, plans, spec) -> tuple:
                 lut = plan.lut_any if g.kind == "b" else plan.relaxed_lut
                 frac = warp_pass_frac(torch, port, index, g.m, g.kbits, lut)
             per_pos += frac * g.n_patterns * (2 if g.kind == "b" else 5)
+    return per_pos
+
+
+def mega_bound_ms(window, spec, counts) -> tuple:
+    """(least ms, what binds, operations per position) of one megascan
+    launch over ``window`` whose counts are ``counts``, from work that any
+    implementation does.  Bytes: the window read once and the counts
+    written once.  Operations, per position: 4 for each 'a' and 'b' group
+    (form the packed word, hash it, probe one table, test), 4 (k + 1) for
+    each 'x' group, 20 per inspected block for each 'c' group (one block a
+    stride); then ceil(m / 4) word compares for each occurrence counted.
+    None of it grows with the number of patterns."""
+    per_pos = 0.0
+    verify = 0
+    for g in spec.groups:
+        per_pos += {"a": 4, "b": 4, "x": 4 * (g.k + 1)}.get(g.kind, 20 / max(1, g.stride))
+        verify += int(counts[g.col : g.col + g.n_patterns].sum()) * -(-g.m // 4)
     n = window.numel()
-    return (*bound_of(n + 4 * spec.p_total, n * per_pos), per_pos)
+    ops = n * per_pos + verify
+    return (*bound_of(n + 4 * spec.p_total, ops), ops / n)
 
 
 def time_megascan(torch, port: Port, window, plans, spec, label: str) -> dict:
@@ -1132,16 +1235,20 @@ def time_megascan(torch, port: Port, window, plans, spec, label: str) -> dict:
     def call():
         return port.ms_ops.megascan_count_window(window, plans, spec, out=out.zero_())
 
+    counts = call().clone()
     kernel_ms = time_cuda(torch, call, 20, queued=True)
     call_ms = time_cuda(torch, call, 20)
-    plain_ms = time_cuda(torch, lambda: port.ms_plain(window, plans, k=spec.k), 5)
-    bound_ms, bound_by, per_pos = mega_bound_ms(torch, port, window, plans, spec)
     n = window.numel()
+    plain_ms = time_cuda(torch, lambda: port.ms_plain(window, plans, k=spec.k), 5)
+    bound_ms, bound_by, per_pos = mega_bound_ms(window, spec, counts)
     return emit({"phase": "timing", "kernel": "megascan", "window": label, "n": n,
                  "patterns": spec.p_total, "k": spec.k or 0,
                  "groups": "".join(g.kind for g in spec.groups), "kernel_ms": kernel_ms,
-                 "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                 "ops_per_position": per_pos, "library_ms": None,
+                 "call_ms": call_ms, "host_ms": call_ms - kernel_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "ops_per_position": per_pos,
+                 "ops_per_position_pr13": mega_ops_first_design(torch, port, window, plans, spec),
+                 "counted": int(counts.sum()), "library_ms": None,
                  "GB_per_s": n / (kernel_ms * 1e-3) / 1e9})
 
 
@@ -1170,28 +1277,32 @@ def timing_stream_approx(torch, np, port: Port, seed: int, n: int, window_bytes:
                                                   seed=900)).to(DEVICE)
     (plan,) = engine.compile_patterns(list(bp.cpu().numpy()), k=2, device=DEVICE)
     lut = plan.relaxed_lut
-    def call():
+    P, m = bp.shape
+    check(port.ax_kernel.use_pieces(m, 2, P), "the approx batch must take the pigeonhole filter")
+
+    def call(forced=None):
         return port.ax_cuda(texts, plan.patterns, plan.anchors, 2, lut, kbits=plan.kbits,
-                            lengths=lengths)
+                            lengths=lengths, _pieces=forced)
 
     kernel_ms = time_cuda(torch, call, 20, queued=True)
     call_ms = time_cuda(torch, call, 20)
+    # the first-word path (the first design) at the same shape, the variant
+    first_word_ms = time_cuda(torch, lambda: call(False), 20, queued=True)
     plain_ms = time_cuda(torch, lambda: port.ax_plain(texts, bp, 2, lengths), 5)
-    P, m = bp.shape
-    # operations: 5 a pattern at every position (first-word mismatches and
-    # merge) in the warps the relaxed LUT lets through, plus the gate's
-    # fingerprint over all nw anchor words and its probe
-    nw = m // 4 + (m % 4 != 0)
-    frac, gate_ops = 1.0, 0
-    if lut is not None:
-        frac = warp_pass_frac(torch, port, engine.build_index(texts, lengths), m, plan.kbits, lut)
-        gate_ops = 3 * nw + 6
+    masks = call()
+    check(torch.equal(masks, call(False)), "approx: pieces != first-word path at the batch")
+    # operations, as for megascan's 'x' groups: 4 (k + 1) a position (form,
+    # hash, probe and test each piece's word), then ceil(m / 4) word
+    # compares for each match reported; bytes: the texts read, the masks
+    # written once
+    matches = int(masks.sum())
+    del masks
     bound_ms, bound_by = bound_of(B * nb * (P + 1) + P * m + 4 * B,
-                                  B * nb * (gate_ops + frac * P * 5))
+                                  B * nb * 4 * (2 + 1) + matches * -(-m // 4))
     rows["approx"] = emit({
         "phase": "timing", "kernel": "approx", "B": B, "n": nb, "P": P, "m": m, "k": 2,
-        "use_lut": lut is not None, "kernel_ms": kernel_ms, "call_ms": call_ms,
-        "plain_ms": plain_ms,
+        "use_lut": lut is not None, "path": "pieces", "kernel_ms": kernel_ms, "call_ms": call_ms,
+        "first_word_kernel_ms": first_word_ms, "plain_ms": plain_ms, "matches": matches,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "GB_per_s": B * nb * (P + 1) / (kernel_ms * 1e-3) / 1e9})
     return rows

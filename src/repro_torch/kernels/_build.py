@@ -29,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -96,10 +97,14 @@ def check_u8(name: str, *tensors: torch.Tensor) -> None:
 
 
 def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
-    """The C launcher ``fn_name`` of library ``lib_name``, typed."""
-    fn = getattr(load(lib_name), fn_name)
-    fn.argtypes = [*argtypes, PTR]  # the stream comes last
-    fn.restype = ctypes.c_int
+    """The C launcher ``fn_name`` of library ``lib_name``, typed once and
+    cached per (library, name): a launch sets no ``argtypes`` again."""
+    fn = _FUNCTIONS.get((lib_name, fn_name))
+    if fn is None:
+        fn = getattr(load(lib_name), fn_name)
+        fn.argtypes = [*argtypes, PTR]  # the stream comes last
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[lib_name, fn_name] = fn
     return fn
 
 

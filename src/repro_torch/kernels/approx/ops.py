@@ -1,6 +1,14 @@
 """Public k-mismatch ops: the CUDA kernel on the card, its plain version on
 the CPU.  The relaxed fingerprint LUT comes from the engine's plan compiler,
-so kernel and engine share one gate."""
+so kernel and engine share one gate.
+
+The kernel's path is one static rule, ``use_pieces(m, k, P)``: the
+pigeonhole filter (k + 1 pieces, each probed in a per-piece pattern-id
+table) when m >= 4 (k + 1), the tables fit ``PIECE_TABLE_CAP`` and the
+block's shared memory fits (``pieces_smem_bytes``); the first-word path
+(relaxed-LUT warp gate, first packed word within k) for shorter pieces,
+k >= m, larger tables and, past 32 patterns, more than 27 pieces.  Both
+give the same masks."""
 
 from __future__ import annotations
 
@@ -9,7 +17,7 @@ import torch
 from repro_torch.core.engine import compile_patterns_cached
 from repro_torch.core.packing import as_u8
 from repro_torch.kernels import _build
-from repro_torch.kernels.approx.approx import approx_cuda
+from repro_torch.kernels.approx.approx import PIECE_TABLE_CAP, approx_cuda, use_pieces
 from repro_torch.kernels.approx.ref import approx_batched_ref
 
 # The reference op's bound on m (its int8 accumulator's safety argument,
@@ -22,9 +30,11 @@ def approx_batched(texts, patterns, k: int, lengths=None, *, device=None) -> tor
     positions matching under <= k mismatches; 1 <= m <= 127.
 
     ``lengths`` gives per-row true lengths (matches never start in padding).
-    Host inputs go to ``device`` (default: the card).  The relaxed LUT gate
-    is used when the plan compiled for this k carries one (m >= 4, k <= 2,
-    unsaturated expansion); otherwise every warp verifies.
+    Host inputs go to ``device`` (default: the card).  On the card the
+    kernel takes the pigeonhole filter when ``use_pieces(m, k, P)``; on the
+    first-word path the relaxed LUT gate is used when the plan compiled for
+    this k carries one (m >= 4, k <= 2, unsaturated expansion), otherwise
+    every warp verifies.
     """
     t = as_u8(texts, device)
     if t.ndim == 1:

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.packing import shift_left
+from repro_torch.core.packing import FP_MULT, WORD_SALTS, shift_left
 
 
 def approx_batched_ref(texts: torch.Tensor, patterns: torch.Tensor, k: int,
@@ -30,3 +30,30 @@ def approx_batched_ref(texts: torch.Tensor, patterns: torch.Tensor, k: int,
 def kmismatch_ref(text: torch.Tensor, pattern: torch.Tensor, k: int) -> torch.Tensor:
     """bool[n]: Hamming distance of the window at i to pattern <= k."""
     return approx_batched_ref(text[None, :], pattern[None, :], k)[0, 0]
+
+
+def approx_piece_candidates_ref(texts: torch.Tensor, patterns: torch.Tensor,
+                                k: int) -> torch.Tensor:
+    """The approx kernel's pigeonhole filter in plain PyTorch: bool (B, P,
+    n), pattern p is a candidate at start i of text b when one of its k + 1
+    pieces' tables flags it there (``approx.piece_tables_np``; bytes past n
+    read as 0).  Needs every piece to hold a packed word (m >= 4 (k + 1)).
+    Every start within k mismatches is flagged."""
+    from repro_torch.core.engine import _word_offsets
+    from repro_torch.kernels.approx.approx import PIECE_BITS, piece_tables_np, pieces
+
+    ts = (texts[None, :] if texts.ndim == 1 else texts).to(torch.int64)
+    P, m = patterns.shape
+    tables = torch.from_numpy(piece_tables_np(patterns.cpu().numpy(), k).astype("int64"))
+    tables = tables.to(ts.device)
+    p = torch.arange(P, device=ts.device)
+    cand = torch.zeros((ts.shape[0], P, ts.shape[1]), dtype=torch.bool, device=ts.device)
+    for j, (off, ln) in enumerate(pieces(m, k)):
+        v = torch.zeros_like(ts)
+        for i, o in enumerate(_word_offsets(ln)[: len(WORD_SALTS)]):
+            word = sum(shift_left(ts, off + o + b) << (8 * b) for b in range(4))
+            v = (v + word * int(WORD_SALTS[i])) & 0xFFFFFFFF
+        rows = ((v * int(FP_MULT)) & 0xFFFFFFFF) >> (32 - PIECE_BITS)  # (B, n)
+        words = tables[j][rows]  # (B, n, W)
+        cand |= ((words[:, :, p // 32] >> (p % 32)) & 1).transpose(1, 2).bool()
+    return cand

@@ -6,28 +6,100 @@ kernel adds each tile's counts straight into the caller's (P_total,) int32
 accumulator.  Counts, not masks, come out, so the kernel reads the window
 once (n / 3.35 TB/s on an H100 SXM) and spends its time on integer work;
 its design is described in the CUDA source.
+
+Everything a launch needs besides the window is built once per (spec,
+plans) and cached (``group_table``): the device array of Group records,
+the private pattern-id tables of the 'a' and 'b' groups, and the launch's
+static arguments.  A call only checks its window and launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core.engine import _np_window_fingerprint
 from repro_torch.core.epsm import EPSMC_BETA
-from repro_torch.core.packing import FP_MULT, WORD_SALTS, fingerprint_weights
+from repro_torch.core.packing import FP_MULT, fingerprint_weights
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import I64, PTR
-from repro_torch.kernels.multipattern.multipattern import _cached_bitset, _Salts
+from repro_torch.kernels.multipattern.multipattern import SALTS, _cached_bitset, _Salts
 
-TILE = 4096  # positions a block owns; the staged halo is one tile each side
-STAGED = 3 * TILE + 16  # the kernel's staged bytes
+TILE = 4096  # positions a block owns
+SLACK = 16   # staged bytes past the forward halo
 KINDS = {"a": 0, "b": 1, "c": 2, "x": 3}
+# Bytes an 'a' group's private table may take: 2^abits rows of W words
+A_TABLE_BYTES = 8192
+
+
+def round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def staged_bytes(back: int, fwd: int) -> int:
+    """Text bytes a block stages: the back halo, the tile, the forward halo
+    and the slack (``mega_staged`` in the CUDA source)."""
+    return back + TILE + fwd + SLACK
+
+
+def smem_bytes(back: int, fwd: int, p_total: int) -> int:
+    """The kernel's dynamic shared memory per block: the staged bytes and one
+    int32 counter per pattern (``megascan_smem_bytes`` in the CUDA source)."""
+    return staged_bytes(back, fwd) + 4 * p_total
+
+
+def a_table_bits(P: int) -> int:
+    """Rows of an 'a' group's private table, as a power of two: about eight
+    per pattern, at most A_TABLE_BYTES of W = ceil(P/32) words a row."""
+    W = -(-P // 32)
+    return min(P.bit_length() + 3, (A_TABLE_BYTES // (4 * W)).bit_length() - 1)
+
+
+def _pid_bitmask(rows: np.ndarray, nbits: int) -> np.ndarray:
+    """(2^nbits, ceil(P/32)) uint32: bit p % 32 of word p // 32 of row
+    rows[p] is set for every pattern p."""
+    P = rows.shape[0]
+    table = np.zeros((1 << nbits, -(-P // 32)), np.uint32)
+    pid = np.arange(P)
+    np.bitwise_or.at(table, (rows, pid // 32), (np.uint32(1) << (pid % 32).astype(np.uint32)))
+    return table
+
+
+def a_words_of(pats: np.ndarray) -> np.ndarray:
+    """(P, m < 4) uint8 -> (P,) uint32 little-endian packed patterns: the
+    masked gram a window must equal."""
+    w = np.zeros(pats.shape[0], np.uint32)
+    for j in range(pats.shape[1]):
+        w |= pats[:, j].astype(np.uint32) << np.uint32(8 * j)
+    return w
+
+
+def a_hash(x: np.ndarray, abits: int) -> np.ndarray:
+    """Row of masked grams x (uint32) in an 'a' table: FP_MULT multiply-shift."""
+    return ((x.astype(np.uint32) * FP_MULT) >> np.uint32(32 - abits)).astype(np.int64)
+
+
+def a_table(pats: np.ndarray, abits: int) -> np.ndarray:
+    """The private table of an 'a' plan: masked gram hash -> pattern ids."""
+    return _pid_bitmask(a_hash(a_words_of(pats), abits), abits)
+
+
+def b_table(anchors: np.ndarray, kbits: int) -> np.ndarray:
+    """The private table of a 'b' plan: window fingerprint -> pattern ids
+    (read by plans whose fingerprints are not distinct)."""
+    rows = _np_window_fingerprint(anchors.view(np.uint32), kbits).astype(np.int64)
+    return _pid_bitmask(rows, kbits)
 
 
 class _Weights(ctypes.Structure):
     _fields_ = [("w", ctypes.c_int32 * EPSMC_BETA)]
+
+
+_WEIGHTS = _Weights((ctypes.c_int32 * EPSMC_BETA)(*fingerprint_weights(EPSMC_BETA).tolist()))
 
 
 class _Group(ctypes.Structure):
@@ -35,26 +107,51 @@ class _Group(ctypes.Structure):
     its operands on the card."""
 
     _fields_ = [(name, ctypes.c_int) for name in (
-        "kind", "m", "P", "kbits", "col", "k", "use_lut", "stride", "noff", "nw", "W", "pad")] + [
+        "kind", "m", "P", "kbits", "col", "k", "use_lut", "stride", "noff", "nw", "W", "abits")] + [
         ("pats", ctypes.c_void_p), ("anchors", ctypes.c_void_p), ("lut", ctypes.c_void_p),
-        ("bits", ctypes.c_void_p)]
+        ("bits", ctypes.c_void_p), ("pid", ctypes.c_void_p)]
 
 
-# (spec, plan identities) -> (plans, device table, operands it points to)
+_ARGTYPES = [PTR, I64, I64, I64, PTR, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             _Weights, _Salts, ctypes.c_uint32, PTR]
+
+
+class _Entry(NamedTuple):
+    spec: object
+    plans: tuple
+    device: torch.device
+    table: torch.Tensor   # the Group records on the card
+    keep: list            # every tensor the records point to
+    args: tuple           # the launch's arguments after the three window ones
+
+
+# (id(spec), plan identities) -> _Entry; the entry holds the spec and plans
 _TABLES: "OrderedDict" = OrderedDict()
 _TABLES_MAX = 8
 
 
-def group_table(plans, spec):
-    """The device array of ``_Group`` records of (plans, spec), built once and
-    cached.  The entry holds the plans and every tensor the records point to,
-    so the pointers stay valid while it is cached."""
-    key = (spec, tuple(id(p) for p in plans))
+def private_table(plan, g) -> Optional[np.ndarray]:
+    """The private pattern-id table the kernel reads for group ``g`` of
+    ``plan``: the gram table of an 'a' group, the fingerprint table of a
+    'b' group without ``lut_pid``; None for the others."""
+    if g.kind == "a":
+        return a_table(plan.patterns.cpu().numpy(), g.abits)
+    if g.kind == "b" and plan.lut_pid is None:
+        return b_table(plan.anchors.cpu().numpy(), g.kbits)
+    return None
+
+
+def _entry(plans, spec) -> _Entry:
+    key = (id(spec), *map(id, plans))
     ent = _TABLES.get(key)
-    if ent is not None:
+    if ent is not None and ent.spec is spec:
         _TABLES.move_to_end(key)
-        return ent[1]
+        return ent
+    if spec.tile != TILE:
+        raise ValueError(f"megascan kernel is built for tile {TILE} (spec tile {spec.tile})")
     dev = plans[0].device
+    if any(p.device != dev for p in plans):
+        raise ValueError("megascan: every plan must be on one device")
     recs = (_Group * len(spec.groups))()
     keep = []
     for rec, plan, g in zip(recs, plans, spec.groups):
@@ -62,18 +159,36 @@ def group_table(plans, spec):
         bitset = _cached_bitset(lut) if lut is not None else None
         pats, anchors = plan.patterns.contiguous(), plan.anchors.contiguous()
         bits = plan.lut_bits.contiguous() if g.kind == "c" else None
-        keep += [pats, anchors, bitset, bits]
+        private = private_table(plan, g)
+        if private is not None:
+            bits = torch.from_numpy(private.view(np.int32)).to(dev)
+        if g.kind == "a":
+            words = a_words_of(plan.patterns.cpu().numpy())
+            anchors = torch.from_numpy(words.view(np.int32)).to(dev)
+        pid = plan.lut_pid.contiguous() if g.kind == "b" and plan.lut_pid is not None else None
+        keep += [pats, anchors, bitset, bits, pid]
         rec.kind, rec.m, rec.P, rec.kbits, rec.col = KINDS[g.kind], g.m, g.n_patterns, g.kbits, g.col
         rec.k, rec.use_lut, rec.stride, rec.noff = g.k, int(g.use_lut), g.stride, g.noff_used
-        rec.nw, rec.W = anchors.shape[1], 0 if bits is None else bits.shape[1]
+        rec.nw, rec.W = plan.anchors.shape[1], 0 if bits is None else bits.shape[1]
+        rec.abits = g.abits
         rec.pats, rec.anchors = pats.data_ptr(), anchors.data_ptr()
         rec.lut = 0 if bitset is None else bitset.data_ptr()
         rec.bits = 0 if bits is None else bits.data_ptr()
+        rec.pid = 0 if pid is None else pid.data_ptr()
     table = torch.frombuffer(bytearray(bytes(recs)), dtype=torch.uint8).to(dev)
-    _TABLES[key] = (tuple(plans), table, keep)
+    args = (table.data_ptr(), len(spec.groups), spec.p_total, spec.halo_back, spec.halo_fwd,
+            _WEIGHTS, SALTS, int(FP_MULT))
+    ent = _Entry(spec, tuple(plans), dev, table, keep, args)
+    _TABLES[key] = ent
     if len(_TABLES) > _TABLES_MAX:
         _TABLES.popitem(last=False)
-    return table
+    return ent
+
+
+def group_table(plans, spec) -> torch.Tensor:
+    """The device array of ``_Group`` records of (plans, spec), built once and
+    cached with the private tables and operands its pointers reach."""
+    return _entry(plans, spec).table
 
 
 def megascan_cuda(window: torch.Tensor, plans, spec, *, length: int, prev_ov: int,
@@ -88,27 +203,20 @@ def megascan_cuda(window: torch.Tensor, plans, spec, *, length: int, prev_ov: in
     _build.check_u8("megascan", window)
     n = window.shape[0]
     dev = window.device
-    if spec.tile != TILE:
-        raise ValueError(f"megascan kernel is built for tile {TILE} (spec tile {spec.tile})")
     if not 0 <= length <= n or prev_ov < 0:
         raise ValueError(f"megascan: need 0 <= length <= n and prev_ov >= 0 "
                          f"(length={length}, n={n}, prev_ov={prev_ov})")
     if out.shape != (spec.p_total,) or out.dtype != torch.int32 or out.device != dev:
         raise ValueError(f"megascan: out must be ({spec.p_total},) int32 on {dev}")
-    if any(p.device != dev for p in plans):
+    ent = _entry(plans, spec)
+    if ent.device != dev:
         raise ValueError(f"megascan: plans must be on {dev}")
     if n == 0:
         return out
-    table = group_table(plans, spec)
-    w = fingerprint_weights(EPSMC_BETA).tolist()
-    salts = _Salts((ctypes.c_uint32 * len(WORD_SALTS))(*(int(s) for s in WORD_SALTS)))
-    fn = _build.function("megascan", "megascan_launch",
-                         [PTR, I64, I64, I64, PTR, ctypes.c_int, ctypes.c_int, _Weights, _Salts,
-                          ctypes.c_uint32, PTR])
+    fn = _build.function("megascan", "megascan_launch", _ARGTYPES)
     with torch.cuda.device(dev):
-        rc = fn(window.data_ptr(), n, int(length), int(prev_ov), table.data_ptr(),
-                len(spec.groups), spec.p_total, _Weights((ctypes.c_int32 * EPSMC_BETA)(*w)),
-                salts, int(FP_MULT), out.data_ptr(), _build.stream_of(window))
+        rc = fn(window.data_ptr(), n, int(length), int(prev_ov), *ent.args, out.data_ptr(),
+                _build.stream_of(window))
     _build.raise_on_error("megascan", rc)
     megascan_cuda.launches += 1
     return out

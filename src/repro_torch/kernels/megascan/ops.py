@@ -20,15 +20,21 @@ from repro_torch.core.engine import PatternPlan, _effective_k
 from repro_torch.core.epsm import EPSMC_BETA, _epsmc_stride
 from repro_torch.core.packing import PACK
 from repro_torch.kernels import _build
-from repro_torch.kernels.megascan.megascan import STAGED, TILE, megascan_cuda
+from repro_torch.kernels.megascan.megascan import (
+    TILE,
+    a_table_bits,
+    megascan_cuda,
+    round16,
+    smem_bytes,
+)
 from repro_torch.kernels.megascan.ref import megascan_count_window_ref
 
 # Shared memory one block of an H100 may use (232,448 bytes of the SM's
-# 256 KB): the kernel keeps its staged tiles and one int32 counter per
+# 256 KB): the kernel keeps its staged text and one int32 counter per
 # pattern there.
 SMEM_BUDGET = 227 * 1024
-# Per-group pattern ceiling: the in-kernel verify walks all P rows of a
-# candidate, so dictionary-scale groups belong on the engine's bounded CSR
+# Per-group pattern ceiling: 'x' groups and 'c' candidates may walk all P
+# rows, so dictionary-scale groups belong on the engine's bounded CSR
 # routes, as in the reference.
 MEGA_P_MAX = 512
 # The int8 accumulator clamp ceiling of the reference kernel.
@@ -48,6 +54,7 @@ class GroupSpec:
     use_lut: bool = False   # 'x': relaxed-LUT gate available
     stride: int = 0  # 'c' only
     noff_used: int = 0  # 'c' only
+    abits: int = 0   # 'a' only: rows of the private gram table, 2^abits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +67,8 @@ class MegaSpec:
     beta: int
     smem_bytes: int   # the kernel's dynamic shared memory per block
     k: Optional[int] = None  # the budget override the spec was built for
+    halo_back: int = 0   # staged bytes before the tile: largest 'c' stride - 1, to 16
+    halo_fwd: int = 16   # staged bytes after it: largest m - 1 + 3, rounded up to 16
 
 
 def build_mega_spec(plans: Sequence[PatternPlan], *, k: Optional[int] = None) -> Optional[MegaSpec]:
@@ -68,19 +77,18 @@ def build_mega_spec(plans: Sequence[PatternPlan], *, k: Optional[int] = None) ->
     The card's rule: the reference's halo and verify rules, with its VMEM
     budget replaced by what the CUDA kernel keeps in shared memory.
 
-      * every group needs m <= 4096 - 3, so a packed word at any offset of a
-        window starting in the tile stays inside the staged prev|cur|next
-        tiles;
-      * EPSMc groups need stride + m <= 4096, so a candidate window (start
-        reaching back < stride, body m past the owned block) never escapes
-        the halo; bucketed EPSMc plans (CSR payloads, no lut_bits) are
-        ineligible;
+      * every group needs m <= 4096 - 3 and EPSMc groups stride + m <=
+        4096 (the halo rules of the reference's prev|cur|next tiles; the
+        kernel stages only the halo the set needs: back the largest 'c'
+        stride - 1, forward the largest m - 1 + 3, each rounded up to 16);
+        bucketed EPSMc plans (CSR payloads, no lut_bits) are ineligible;
       * at most MEGA_P_MAX = 512 patterns a group;
       * k <= 127 (the reference's int8 clamp ceiling); k > 0 groups ('x')
         use the relaxed-LUT gate only when the plan was compiled for >= k
         and m >= 4;
-      * the staged bytes (3 * 4096 + 16) plus one int32 counter per pattern
-        fit the 227 KB of shared memory a block may use.
+      * the staged bytes plus one int32 counter per pattern fit the 227 KB
+        of shared memory a block may use.  The 'a' groups' private tables
+        are read from global memory, so they never make a set ineligible.
     """
     if not plans:
         return None
@@ -101,7 +109,8 @@ def build_mega_spec(plans: Sequence[PatternPlan], *, k: Optional[int] = None) ->
             groups.append(GroupSpec(kind="x", m=m, n_patterns=P, kbits=plan.kbits, col=col,
                                     k=kk, use_lut=use_lut))
         elif plan.regime == "a":
-            groups.append(GroupSpec(kind="a", m=m, n_patterns=P, kbits=0, col=col))
+            groups.append(GroupSpec(kind="a", m=m, n_patterns=P, kbits=0, col=col,
+                                    abits=a_table_bits(P)))
         elif plan.regime == "b":
             groups.append(GroupSpec(kind="b", m=m, n_patterns=P, kbits=plan.kbits, col=col))
         else:
@@ -111,10 +120,13 @@ def build_mega_spec(plans: Sequence[PatternPlan], *, k: Optional[int] = None) ->
             groups.append(GroupSpec(kind="c", m=m, n_patterns=P, kbits=plan.kbits, col=col,
                                     stride=stride, noff_used=min(stride, m - beta + 1)))
         col += P
-    smem = STAGED + 4 * col
+    back = round16(max([g.stride - 1 for g in groups if g.kind == "c"], default=0))
+    fwd = round16(max(g.m for g in groups) - 1 + PACK - 1)
+    smem = smem_bytes(back, fwd, col)
     if smem > SMEM_BUDGET:
         return None
-    return MegaSpec(groups=tuple(groups), p_total=col, tile=TILE, beta=beta, smem_bytes=smem, k=k)
+    return MegaSpec(groups=tuple(groups), p_total=col, tile=TILE, beta=beta, smem_bytes=smem,
+                    k=k, halo_back=back, halo_fwd=fwd)
 
 
 def megascan_count_window(

@@ -25,6 +25,10 @@ class _Salts(ctypes.Structure):
     _fields_ = [("s", ctypes.c_uint32 * len(WORD_SALTS))]
 
 
+# the engine's word salts as the kernels' by-value Salts argument, built once
+SALTS = _Salts((ctypes.c_uint32 * len(WORD_SALTS))(*(int(s) for s in WORD_SALTS)))
+
+
 def _lut_bitset(lut: torch.Tensor) -> torch.Tensor:
     """(2^kbits,) bool -> int32 words of 32 bits each, bit j of word w being
     lut[32 w + j] (padded to a whole word).  The bits of a word are distinct,
@@ -84,13 +88,12 @@ def multipattern_cuda(texts: torch.Tensor, anchors: torch.Tensor, m: int, lut: t
     anchors = anchors.contiguous()
     lengths = lengths.contiguous()
     bitset = _cached_bitset(lut) if use_lut else anchors  # unread without the gate
-    salts = _Salts((ctypes.c_uint32 * len(WORD_SALTS))(*(int(s) for s in WORD_SALTS)))
     fn = _build.function("multipattern", "multipattern_launch",
                          [PTR, I64, I64, PTR, I64, PTR, I64, I64, PTR, ctypes.c_int,
                           ctypes.c_int, _Salts, ctypes.c_uint32, PTR])
     with torch.cuda.device(dev):
         rc = fn(texts.data_ptr(), B, n, lengths.data_ptr(), int(start_min), anchors.data_ptr(),
-                P, m, bitset.data_ptr(), int(kbits if use_lut else 17), int(use_lut), salts,
+                P, m, bitset.data_ptr(), int(kbits if use_lut else 17), int(use_lut), SALTS,
                 int(FP_MULT), out.data_ptr(), _build.stream_of(texts))
     _build.raise_on_error("multipattern", rc)
     multipattern_cuda.launches += 1

@@ -24,8 +24,10 @@ from repro_torch import approx as PA
 from repro_torch.approx import counting as PC, relaxed as PR
 from repro_torch.core import engine as E, epsm as Pepsm, multipattern as Pmp
 from repro_torch.kernels.approx import approx_batched, approx_batched_ref, approx_multipattern
+from repro_torch.kernels.approx import approx as AXK
 from repro_torch.kernels.approx import ops as AXO
 from repro_torch.kernels.approx.approx import approx_cuda
+from repro_torch.kernels.approx.ref import approx_piece_candidates_ref
 
 from conftest import make_text
 
@@ -310,3 +312,90 @@ def test_patternset_k_matches_reference(rng):
         assert bool(got.contains_any(d)) == bool(want.contains_any(d))
         np.testing.assert_array_equal(got.count_each(d).numpy(), np.asarray(want.count_each(d)))
     assert not Pmp.PatternSet(pats, device=CPU).blocked(mat).numpy().any()
+
+
+def test_piece_split_is_disjoint_and_covers():
+    """k + 1 pieces of lengths m // (k + 1) or one more, in order, disjoint,
+    covering [0, m); the longer ones last (16 at k = 2: 5, 5, 6)."""
+    assert AXK.pieces(16, 2) == [(0, 5), (5, 5), (10, 6)]
+    for m in range(1, 70):
+        for k in range(0, m + 2):
+            ps = AXK.pieces(m, k)
+            assert len(ps) == k + 1
+            assert [o for o, _ in ps] == [sum(ln for _, ln in ps[:j]) for j in range(k + 1)]
+            assert sum(ln for _, ln in ps) == m
+            lens = [ln for _, ln in ps]
+            assert set(lens) <= {m // (k + 1), m // (k + 1) + 1} and lens == sorted(lens)
+
+
+def test_piece_rule_sends_short_pieces_to_the_first_word_path():
+    """One static rule: pieces of a packed word or more, within the table
+    cap and the block's shared memory; shorter pieces (m < 4 (k + 1)),
+    budgets of m or more, oversized tables and, past 32 patterns, too many
+    pieces keep the first-word path."""
+    assert AXO.use_pieces is AXK.use_pieces and AXO.PIECE_TABLE_CAP == 64 << 20
+    assert AXK.use_pieces(16, 2, 32) and AXK.use_pieces(16, 3, 32) and AXK.use_pieces(32, 2, 1)
+    assert AXK.use_pieces(8, 1, 8) and AXK.use_pieces(4, 0, 1)
+    assert not AXK.use_pieces(8, 2, 32) and not AXK.use_pieces(15, 3, 32)  # pieces under 4 bytes
+    assert not any(AXK.use_pieces(m, k, 4) for m in range(1, 40) for k in range(m, m + 3))
+    for m in range(1, 130):
+        for k in range(0, 8):
+            assert AXK.use_pieces(m, k, 32) == (m >= 4 * (k + 1))
+    big = 32 * (AXK.PIECE_TABLE_CAP // (3 * (4 << AXK.PIECE_BITS)))
+    assert AXK.use_pieces(16, 2, big) and not AXK.use_pieces(16, 2, big + 1)
+    # past 32 patterns each piece's rows take 8 KB of the block's shared memory
+    assert AXK.pieces_smem_bytes(16, 2, 32) == 4096 + 16 + 16
+    assert AXK.pieces_smem_bytes(127, 2, 33) == 4096 + 128 + 16 + 3 * 8192
+    assert AXK.SMEM_BUDGET == 227 * 1024
+    assert AXK.use_pieces(127, 26, 33) and not AXK.use_pieces(127, 27, 33)
+    assert AXK.use_pieces(127, 30, 32) and not AXK.use_pieces(127, 30, 33)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3])
+def test_piece_filter_flags_every_reference_match(rng, k):
+    """The pigeonhole filter's plain version flags every (pattern, start)
+    the reference's Pallas kernel reports within k (interpret mode, one
+    length in four) and its jnp oracle (every m in 4..33 the filter
+    takes), on rows of alphabet 2, 4, 20 and 256, with planted 1- and
+    k-mismatch copies."""
+    texts = np.stack([make_text(rng, 300, sigma) for sigma in (2, 4, 20, 256)])
+    lengths = np.asarray([300, 277, 300, 150], np.int32)
+    tt = torch.from_numpy(texts)
+    for m in range(4 * (k + 1), 34):
+        ps = np.stack([texts[r][s : s + m] for r, s in ((0, 7), (1, 40), (2, 100), (3, 3))]
+                      + [rng.randint(0, 4, size=m).astype(np.uint8)])
+        ps[1, m // 2] ^= 1
+        ps[2, [j * m // (k + 1) for j in range(k)]] ^= 2  # one change in k of the pieces
+        if m % 4 == k:
+            want = np.asarray(r_approx_batched(texts, ps, k, lengths, tile=128))
+        else:
+            want = np.asarray(r_approx_batched_ref(texts, ps, k, lengths))
+        cand = approx_piece_candidates_ref(tt, torch.from_numpy(ps), k).numpy()
+        assert not (want & ~cand).any(), f"m={m} k={k}: a match is not flagged"
+        got = approx_batched_ref(tt, torch.from_numpy(ps), k, torch.from_numpy(lengths)).numpy()
+        np.testing.assert_array_equal(got & cand, want)
+        assert want[0, 0].any() and want[2, 2].any() and want[3, 3].any()
+        assert want[1, 1].any() == (k >= 1)
+
+
+def test_piece_tables_cached_and_rebuilt_on_change(rng):
+    """The tables are built once per (patterns tensor, k), hold each
+    piece's pattern bits at its hash, and are rebuilt when the tensor is
+    changed in place or another tensor or budget comes."""
+    pats = torch.from_numpy(rng.randint(0, 4, size=(40, 16)).astype(np.uint8))
+    t2 = AXK.piece_tables(pats, 2)
+    assert t2.shape == (3, 1 << AXK.PIECE_BITS, 2) and t2.dtype == torch.int32
+    assert AXK.piece_tables(pats, 2) is t2
+    rows = AXK.piece_hashes(pats.numpy(), 2)
+    for j in range(3):
+        for p in range(40):
+            assert (int(t2[j, rows[j, p], p // 32]) >> (p % 32)) & 1
+    assert int(torch.stack([t2[j].view(-1) for j in range(3)]).ne(0).sum()) <= 3 * 40
+    t1 = AXK.piece_tables(pats, 1)
+    assert t1.shape[0] == 2 and AXK.piece_tables(pats, 2) is t2
+    pats[0, 0] ^= 1
+    t2b = AXK.piece_tables(pats, 2)
+    assert t2b is not t2
+    np.testing.assert_array_equal(t2b.numpy(), AXK.piece_tables_np(pats.numpy(), 2).view(np.int32))
+    other = pats.clone()
+    assert AXK.piece_tables(other, 2) is not t2b

@@ -32,6 +32,7 @@ from repro_torch.kernels.megascan import (
 )
 from repro_torch.kernels.megascan import megascan as MK
 from repro_torch.kernels.megascan import ops as MO
+from repro_torch.kernels.megascan.ref import megascan_candidates_ref
 from repro_torch.obs.recorder import Recorder
 
 from conftest import make_text
@@ -193,32 +194,168 @@ def test_spec_eligibility_rules(rng):
     assert build_mega_spec(E.compile_patterns(many[:512], bucket=False, device=CPU)) is not None
     assert build_mega_spec(E.compile_patterns(many[:513], bucket=False, device=CPU)) is None
     assert build_mega_spec(E.compile_patterns(many[:200], bucket=True, device=CPU)) is None
-    # counters: 3 * 4096 + 16 staged bytes + 4 per pattern within 227 KB,
-    # that is 55036 counters (107 groups of 512 fit, 108 do not)
-    assert MO.SMEM_BUDGET == 227 * 1024 and MK.STAGED == 3 * 4096 + 16
+    # counters: the staged bytes (the tile, a 16-byte back halo for the 'c'
+    # stride 8 of m = 20, a 32-byte forward halo for m - 1 + 3, 16 bytes of
+    # slack) plus 4 per pattern within 227 KB, that is 56,000 counters: 111
+    # groups of 512 fit, 112 do not (three staged tiles let only 107 fit)
+    assert MO.SMEM_BUDGET == 227 * 1024 and MK.staged_bytes(16, 32) == 4160
     (g512,) = E.compile_patterns(many[:512], bucket=False, device=CPU)
-    s = build_mega_spec([g512] * 107)
-    assert s is not None and s.smem_bytes == MK.STAGED + 4 * 512 * 107 <= MO.SMEM_BUDGET
-    assert build_mega_spec([g512] * 108) is None
+    s = build_mega_spec([g512] * 111)
+    assert (s.halo_back, s.halo_fwd) == (16, 32)
+    assert s is not None and s.smem_bytes == 4160 + 4 * 512 * 111 <= MO.SMEM_BUDGET
+    assert build_mega_spec([g512] * 112) is None
+
+
+def _old_rule_accepts(plans, k=None) -> bool:
+    """Eligibility as it stood with three staged tiles: the same group
+    rules, 3 * 4096 + 16 staged bytes plus 4 per pattern within 227 KB."""
+    p_total = 0
+    for p in plans:
+        kk = E._effective_k(p, k)
+        if p.m > 4093 or p.n_patterns > 512 or kk > 127:
+            return False
+        if kk == 0 and p.regime == "c" and (p.lut_bits is None or E._epsmc_stride(p.m, 8) + p.m > 4096):
+            return False
+        p_total += p.n_patterns
+    return 3 * 4096 + 16 + 4 * p_total <= MO.SMEM_BUDGET
+
+
+def test_spec_keeps_eligibility_and_states_its_shared_memory(rng):
+    """Every set the three-tile rule accepted is still accepted; the halos
+    are the largest 'c' stride - 1 and the largest m - 1 + 3, each rounded
+    up to 16; smem_bytes is the launcher's formula (staged bytes and
+    counters); the 'a' tables, read from global memory, take none of it."""
+    text = make_text(rng, 9000, 16)
+    cases = [(LENGTHS, 0), ((2, 3, 40), 0), ((5, 2055), 0), ((4093,), 1), ((3, 17, 100), 2),
+             ((1, 2, 3), 0), ((200, 2055, 24), 0), ((5, 9), 1)]
+    for lengths, k in cases:
+        for per in (1, 33, 300):
+            pats = [text[s : s + m].copy() for m in lengths for s in rng.randint(0, 9000 - m, per)]
+            pp = E.compile_patterns(pats, k=k, bucket=False, device=CPU)
+            spec = build_mega_spec(pp, k=k or None)
+            assert _old_rule_accepts(pp, k or None) <= (spec is not None), (lengths, k, per)
+            if spec is None:
+                continue
+            strides = [g.stride for g in spec.groups if g.kind == "c"]
+            assert spec.halo_back == MK.round16(max(strides, default=1) - 1)
+            assert spec.halo_fwd == MK.round16(max(g.m for g in spec.groups) + 2)
+            assert spec.smem_bytes == MK.smem_bytes(spec.halo_back, spec.halo_fwd,
+                                                    spec.p_total) <= MO.SMEM_BUDGET
+            for g in spec.groups:
+                if g.kind == "a":
+                    assert 4 * (-(-g.n_patterns // 32) << g.abits) <= MK.A_TABLE_BYTES
+    # 110 'a' groups of 512 patterns, 880 KB of private tables: the block
+    # holds only the staged text and the counters
+    (g512,) = E.compile_patterns([bytes(p) for p in np.unique(rng.randint(0, 256, (600, 3)).astype(
+        np.uint8), axis=0)[:512]], device=CPU)
+    s = build_mega_spec([g512] * 110)
+    assert s is not None and s.smem_bytes == MK.smem_bytes(0, 16, 512 * 110)
 
 
 def test_group_table_layout(rng):
-    """The ctypes Group record matches the CUDA struct (12 ints, 4 pointers,
-    80 bytes) and a table holds one record per group; the launch wrapper
-    refuses a CPU window."""
-    assert ctypes.sizeof(MK._Group) == 80 and ctypes.sizeof(MK._Weights) == 32
+    """The ctypes Group record matches the CUDA struct (12 ints, 5 pointers,
+    88 bytes) and a table holds one record per group, pointing at the
+    private tables ('a' always, 'b' without lut_pid) and at lut_pid; the
+    launch wrapper refuses a CPU window."""
+    assert ctypes.sizeof(MK._Group) == 88 and ctypes.sizeof(MK._Weights) == 32
     text = make_text(rng, 3000, 4)
-    pp = E.compile_patterns(_patterns(rng, text, LENGTHS), device=CPU)
+    pats = _patterns(rng, text, LENGTHS)
+    pp = E.compile_patterns(pats, device=CPU)
     spec = build_mega_spec(pp)
     table = MK.group_table(pp, spec)
-    assert table.dtype == torch.uint8 and table.numel() == 80 * len(spec.groups)
+    assert table.dtype == torch.uint8 and table.numel() == 88 * len(spec.groups)
     assert MK.group_table(pp, spec) is table  # cached per (spec, plans)
     recs = (MK._Group * len(spec.groups)).from_buffer_copy(table.numpy().tobytes())
     assert [r.kind for r in recs] == [MK.KINDS[g.kind] for g in spec.groups]
     assert [r.col for r in recs] == [g.col for g in spec.groups]
+    assert [r.abits for r in recs] == [g.abits for g in spec.groups]
+    for r, plan, g in zip(recs, pp, spec.groups):
+        assert bool(r.pid) == (g.kind == "b" and plan.lut_pid is not None)
+        assert bool(r.bits) == (g.kind in "ac" or (g.kind == "b" and plan.lut_pid is None))
+        assert r.W == (0 if g.kind in "bx" and plan.lut_pid is not None or g.kind == "x"
+                       else -(-g.n_patterns // 32))
+    nd = E.compile_patterns([text[s : s + 5] for s in rng.randint(0, 2990, 20)], kbits=6,
+                            device=CPU)  # 20 patterns in 64 fingerprints: they collide
+    assert any(p.regime == "b" and not p.distinct for p in nd)
+    recs = (MK._Group * len(nd)).from_buffer_copy(MK.group_table(nd, build_mega_spec(nd)).numpy().tobytes())
+    assert all(r.bits and not r.pid for r, p in zip(recs, nd) if p.regime == "b" and not p.distinct)
     with pytest.raises(ValueError, match="CUDA"):
         MK.megascan_cuda(torch.from_numpy(text), pp, spec, length=3000, prev_ov=0,
                          out=torch.zeros(spec.p_total, dtype=torch.int32))
+
+
+def _assert_candidates_cover(text, pp, spec, want, *, prev_ov=0, length=None):
+    """The kernel's candidate step (its plain version) flags every
+    occurrence of every 'a' and 'b' pattern, and counting the flagged
+    occurrences gives ``want``'s columns of those groups."""
+    n = len(text)
+    L = n if length is None else length
+    cands = megascan_candidates_ref(text, pp, spec, length=length, prev_ov=prev_ov)
+    checked = 0
+    for plan, g, cand in zip(pp, spec.groups, cands):
+        if cand is None:
+            assert g.kind in "cx"
+            continue
+        win = np.lib.stride_tricks.sliding_window_view(np.concatenate([text, np.zeros(g.m, np.uint8)]), g.m)[:n]
+        occ = (win[None] == plan.patterns.numpy()[:, None, :]).all(-1)
+        pos = np.arange(n)
+        occ &= (pos <= L - g.m) & (pos + g.m - 1 >= prev_ov)
+        flagged = cand.numpy()
+        assert flagged.shape == occ.shape and not (occ & ~flagged).any(), f"{g.kind} m={g.m}: missed"
+        np.testing.assert_array_equal((occ & flagged).sum(-1), want[g.col : g.col + g.n_patterns])
+        checked += 1
+    return checked
+
+
+@pytest.mark.parametrize("case", ["duplicates", "nondistinct_b", "P33"])
+def test_candidate_step_flags_every_pallas_occurrence(rng, case):
+    """The private tables' candidate step ('a' gram table, 'b' lut_pid or
+    private fingerprint table) flags every occurrence the reference's
+    Pallas megakernel counts (interpret mode): duplicate patterns, a 'b'
+    plan whose fingerprints collide (kbits = 5), and W = 2 (P = 33)."""
+    text = make_text(rng, 700, 4)
+    kw = {}
+    if case == "duplicates":
+        pats = _patterns(rng, text, (2, 3, 6, 9, 16))
+        pats += [pats[0].copy(), pats[2].copy(), pats[2].copy(), pats[4].copy()]
+    elif case == "nondistinct_b":
+        pats = [text[s : s + m].copy() for m in (5, 7) for s in rng.randint(0, 690, 16)]
+        kw = {"kbits": 5}
+    else:
+        pats = [text[s : s + m].copy() for m in (3, 7) for s in rng.randint(0, 690, 33)]
+    rp = R.compile_patterns(pats, **kw)
+    pp = E.compile_patterns(pats, device=CPU, **kw)
+    if case == "nondistinct_b":
+        assert not any(p.distinct for p in pp)
+    spec = build_mega_spec(pp)
+    if case == "P33":
+        assert {(g.kind, -(-g.n_patterns // 32)) for g in spec.groups} == {("a", 2), ("b", 2)}
+    want = np.asarray(RM.megascan_count_window(text, rp, RM.build_mega_spec(rp, tile=256), prev_ov=13,
+                                               interpret=True))
+    np.testing.assert_array_equal(megascan_count_window(torch.from_numpy(text), pp, spec, prev_ov=13).numpy(),
+                                  want)
+    assert _assert_candidates_cover(text, pp, spec, want, prev_ov=13) == (
+        4 if case == "duplicates" else 2)
+
+
+def test_candidate_step_with_512_patterns_a_group(rng):
+    """P = 512 in one 'a' group (W = 16, the table at 128 rows) and one 'b'
+    group: the candidate step flags every occurrence of the reference's
+    engine counts, at an unaligned seam and a short valid length."""
+    text = make_text(rng, 6000, 16)
+    grams = np.unique(np.lib.stride_tricks.sliding_window_view(text, 3), axis=0)
+    words = np.unique(np.lib.stride_tricks.sliding_window_view(text, 6), axis=0)
+    pats = list(grams[rng.permutation(len(grams))[:512]]) + list(words[rng.permutation(len(words))[:512]])
+    rp = R.compile_patterns(pats, bucket=False)
+    pp = E.compile_patterns(pats, bucket=False, device=CPU)
+    spec = build_mega_spec(pp)
+    assert [(g.kind, g.n_patterns) for g in spec.groups] == [("a", 512), ("b", 512)]
+    assert spec.groups[0].abits == 7
+    want = np.asarray(_ref_counts(text, np.int32(5900), rp, np.int32(31), k=None))
+    got = megascan_count_window(torch.from_numpy(text), pp, spec, length=5900, prev_ov=31)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert _assert_candidates_cover(text, pp, spec, want, prev_ov=31, length=5900) == 2
+    assert want.sum() > 1000
 
 
 def test_stream_scanner_use_kernel_bit_identity(rng):

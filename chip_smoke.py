@@ -82,6 +82,28 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 and match queries at once, each answer held against
                 count_each alone, and the service trace through
                 benchmarks/validate_trace.py;
+  compare-shard ShardedStreamScanner (count_many, any_many, positions_many) with
+                the main stream's 112 patterns and at k = 1 against one
+                StreamScanner on the card, equal: texts of 40 bytes to 6 MiB,
+                1, 2, 3, 8 and 13 shards (some narrower than the overlap, some
+                empty), static and stealing at 1, 2 and 4 lanes with sheds;
+                FaultPlan seeds 0-2 through FaultyRangeSource (read errors,
+                truncations, latency spikes, shard crashes, all retried); one
+                range that always fails under on_exhausted="partial"; a
+                RemoteRangeReader over a faulty FakeObjectStore; and
+                make_distributed_find / count with 8 shards on the card
+                against epsm.find, m from 2 to 64, 8-byte shards included;
+  main-shard    the main stream's 4 GiB host genome and 112 patterns through
+                ShardedStreamScanner at 8 shards on the card, static and
+                stealing at 2 and 4 lanes (and a fenced trace of the 4-lane
+                run through benchmarks/validate_trace.py), 1 GiB through a
+                seeded FaultPlan, 1 GiB through a RemoteRangeReader, positions
+                of 14 patterns over 256 MiB, two child processes of this
+                script in one gloo group scanning 512 MiB, and
+                make_distributed_count over 1 GiB (one EPSMa/b/c launch a
+                shard); every answer equal to a single StreamScanner's (or
+                epsm.count), megascan launches equal to the dispatches, GB/s
+                beside the single scanner's from the same run;
   timing        median kernel times (CUDA events, queued behind a device sleep
                 so they exclude the wrapper's host time) beside the plain
                 versions' times and the bounds, and the times of epsm.find and
@@ -201,6 +223,10 @@ class Port:
         from repro_torch.kernels.acscan.ref import acscan_counts_ref, acscan_states_ref
         from repro_torch.serve import query_plane
         from repro_torch.serve.server import GrepClient, GrepServer
+        from repro_torch.core import distributed, remote_source, shard_stream
+        from repro_torch.dist import fault_injection, fault_tolerance, sharding
+        from repro_torch.kernels.megascan import megascan as ms_kernel
+        from repro_torch.launch import mesh
 
         self.epsm, self.corpus, self.build = epsm, corpus, _build
         self.engine, self.mp, self.mp_ops = engine, multipattern, mp_ops
@@ -213,6 +239,9 @@ class Port:
         self.acscan_counts_cuda, self.acscan_counts_ref = acscan_counts_cuda, acscan_counts_ref
         self.acscan_states_ref = acscan_states_ref
         self.qp, self.GrepServer, self.GrepClient = query_plane, GrepServer, GrepClient
+        self.shard_stream, self.distributed, self.remote = shard_stream, distributed, remote_source
+        self.fi, self.ft, self.ms_kernel, self.mesh = fault_injection, fault_tolerance, ms_kernel, mesh
+        self.sharding = sharding
         self.wrappers = {"epsma": epsma_cuda, "epsmb": epsmb_cuda, "epsmc": epsmc_cuda,
                          "multipattern": multipattern_cuda, "megascan": megascan_cuda,
                          "approx": approx_cuda, "acscan": acscan_cuda,
@@ -934,6 +963,16 @@ def windows_of(n: int, window_bytes: int, step: int) -> int:
     return 0 if n == 0 else 1 + -(-max(0, n - window_bytes) // step)
 
 
+def stream_genome(torch, port: Port, gen, n: int):
+    """The stream phases' genome: n ACGT bytes made on the card, their host
+    copy, and 112 patterns extracted from it (16 at each STREAM_LENGTHS m:
+    one 'a', three 'b' and three 'c' megascan groups)."""
+    text = genome_text(torch, n, gen)
+    host = text.cpu().numpy()
+    pats = [p for m in STREAM_LENGTHS for p in port.corpus.extract_patterns(host, m, 16, seed=400 + m)]
+    return text, host, pats
+
+
 def plain_stream_counts(torch, port: Port, text, plans, k: int, overlap: int, piece: int):
     """The megascan plain version over a text resident on the card, cut into
     windows of ``piece`` new bytes as a stream cuts it (each window re-reads
@@ -968,9 +1007,7 @@ def main_stream(torch, np, port: Port, seed: int, sizes: dict) -> dict:
 
     # -- the genome: 112 patterns (16 at each m), planted across the first 16 seams
     n = sizes["genome"]
-    text = genome_text(torch, n, gen)
-    host = text.cpu().numpy()
-    pats = [p for m in STREAM_LENGTHS for p in corpus.extract_patterns(host, m, 16, seed=400 + m)]
+    text, host, pats = stream_genome(torch, port, gen, n)
     plans = engine.compile_patterns(pats, device=DEVICE)
     sc = stream.StreamScanner(plans, "auto")
     check(sc.spec is not None, "build_mega_spec is None for the genome plan set")
@@ -1068,7 +1105,8 @@ def main_stream(torch, np, port: Port, seed: int, sizes: dict) -> dict:
           "wall_s": {m: out[f"positions_m{m}"]["wall_s"] for m in (4, 8, 20)}})
     emit({"phase": "main-stream", "launches": launches})
     return {"launches": launches, "rise": rise, "window_bytes": sc.window_bytes,
-            "wall_s": {k: v["wall_s"] for k, v in out.items()}}
+            "wall_s": {k: v["wall_s"] for k, v in out.items()},
+            "host": host, "pats": pats, "genome_GB_per_s": n / out["genome"]["wall_s"] / 1e9}
 
 
 def traced_scan(torch, port: Port, label: str, plans, source, **kw) -> dict:
@@ -1993,10 +2031,407 @@ def timing_acscan(torch, np, port: Port, seed: int, n: int) -> dict:
             "bound_ms": e["counts_bound_ms"], "bound_by": e["counts_bound_by"]}
 
 
+def shard_windows(spec, window_bytes: int, step: int) -> int:
+    """Windows a clean sharded scan emits: each shard's StreamScanner run
+    over its range, its first window carrying the overlap prefix."""
+    total = 0
+    for (s, e), i in zip(spec.ranges, range(spec.n_shards)):
+        carry = s - spec.prefix_range(i)[0]
+        if e > s:
+            total += 1 + -(-max(0, e - s - (window_bytes - carry)) // step)
+    return total
+
+
+def covered_counts(port: Port, plans, text, covered, chunk):
+    """A StreamScanner's counts over each covered range (its overlap prefix
+    injected), summed: the answer a partial scan must give."""
+    acc = None
+    for s, e in covered:
+        sc = port.stream.StreamScanner(plans, chunk)
+        pre = text[max(0, s - sc.overlap) : s] if s else None
+        got = sc.count_many(iter([text[s:e]]), prefix=pre, start=s).astype("int64")
+        acc = got if acc is None else acc + got
+    return acc
+
+
+def position_subset(pats):
+    """Two patterns of each stream length (14, every group kind): the
+    positions runs' plan set, small enough that its masks stay cheap."""
+    seen, out = {}, []
+    for p in pats:
+        if seen.get(len(p), 0) < 2:
+            seen[len(p)] = seen.get(len(p), 0) + 1
+            out.append(p)
+    return out
+
+
+def compare_shard(torch, np, port: Port, seed: int, host, pats, sizes: dict) -> dict:
+    """ShardedStreamScanner, the fault fabric, the remote reader and the
+    halo-exchange scan against a single StreamScanner / epsm.find on the
+    card, every case equal (exact integers, no tolerance)."""
+    engine, stream, ss, fi = port.engine, port.stream, port.shard_stream, port.fi
+    chunk = sizes["chunk"]
+    plans = engine.compile_patterns(pats, device=DEVICE)
+    plans1 = engine.compile_patterns(pats, k=1, device=DEVICE)
+    done = {key: 0 for key in ("count", "any", "positions", "k1", "faulted", "partial", "remote",
+                               "distributed")}
+    steals, fired = 0, 0
+
+    def hold(got, want, what):
+        if not np.array_equal(np.asarray(got), np.asarray(want)):
+            raise RuntimeError(f"compare-shard {what}: sharded != single")
+
+    def sharded(plans_, n_shards, steal, lanes, **kw):
+        return ss.ShardedStreamScanner(plans_, n_shards, chunk, devices=[DEVICE], steal=steal,
+                                       steal_workers=lanes, min_steal_bytes=8 * 1024, **kw)
+
+    modes = ((False, None), (True, 1), (True, 2), (True, 4))
+    texts = [host[:n].copy() for n in sizes["texts"]]
+    for text in texts:
+        single = stream.StreamScanner(plans, chunk)
+        want = single.count_many(text)
+        want_pos = stream.StreamScanner(plans, chunk).positions_many(text)
+        for n_shards in (1, 2, 3, 8, 13):
+            for steal, lanes in modes:
+                what = f"n={len(text)} S={n_shards} steal={steal} lanes={lanes}"
+                sc = sharded(plans, n_shards, steal, lanes)
+                hold(sc.count_many(text), want, f"count {what}")
+                steals += len(sc.steal_events)
+                hold(sharded(plans, n_shards, steal, lanes).any_many(text), want > 0, f"any {what}")
+                done["count"] += 1
+                done["any"] += 1
+                if len(text) <= sizes["positions_max"] or n_shards == 13:
+                    got = sharded(plans, n_shards, steal, lanes).positions_many(text)
+                    for row, (a, b) in enumerate(zip(got, want_pos)):
+                        hold(a, b, f"positions {what} row {row}")
+                    done["positions"] += 1
+        if len(text) <= sizes["positions_max"]:
+            want1 = stream.StreamScanner(plans1, chunk, k=1).count_many(text)
+            for n_shards in (1, 3, 8, 13):
+                for steal, lanes in ((False, None), (True, 2)):
+                    hold(sharded(plans1, n_shards, steal, lanes, k=1).count_many(text), want1,
+                         f"k=1 n={len(text)} S={n_shards} steal={steal}")
+                    done["k1"] += 1
+    check(steals > 0, "compare-shard: no steal or shed happened")
+    # faults, retried: read errors, truncations, latency spikes, shard crashes
+    text = texts[-1]
+    want = stream.StreamScanner(plans, chunk).count_many(text)
+    for fseed in (0, 1, 2):
+        for steal, lanes in ((False, None), (True, 2)):
+            plan = fi.FaultPlan(fseed, read_error_rate=0.05, truncate_rate=0.05, latency_rate=0.05,
+                                latency_s=0.001, crash_rate=0.3, attempts_per_fault=1)
+            sc = sharded(plans, 8, steal, lanes, max_retries=16, fault_plan=plan,
+                         backoff=port.ft.BackoffPolicy(base_s=0.0, jitter=0.0))
+            hold(sc.count_many(fi.FaultyRangeSource(text, plan, piece_bytes=64 * 1024)), want,
+                 f"faulted seed={fseed} steal={steal}")
+            fired += len(plan.events)
+            done["faulted"] += 1
+    check(fired > 0, "compare-shard: the fault plans fired nothing")
+    # one range that always fails: missing is that range, the counts are
+    # those of the covered complement
+    for steal, lanes in ((False, None), (True, 2)):
+        sc = sharded(plans, 8, steal, lanes, on_exhausted="partial", max_retries=2)
+        bad = sc.shard_spec(len(text)).ranges[3]
+
+        def lossy(s, e, bad=bad, ov=sc.overlap):
+            if bad[0] <= s < bad[1] and e - s > ov:  # bodies, never overlap prefixes
+                raise IOError(f"range [{s}, {e}) is lost")
+            return text[s:e]
+
+        res = sc.count_many(lossy, total_bytes=len(text))
+        check(res.missing == (bad,), f"partial steal={steal}: missing {res.missing} != {bad}")
+        hold(res.counts, covered_counts(port, plans, text, res.covered, chunk), f"partial steal={steal}")
+        done["partial"] += 1
+    # a remote range reader over a fake object store with injected faults
+    for steal, lanes in ((False, None), (True, 2)):
+        store = port.remote.FakeObjectStore(text, plan=fi.FaultPlan(seed, read_error_rate=0.1,
+                                                                     truncate_rate=0.1, attempts_per_fault=1))
+        reader = store.reader(part_bytes=128 * 1024, retries=3, sleep=lambda s: None)
+        hold(sharded(plans, 8, steal, lanes, max_retries=2).count_many(reader), want,
+             f"remote steal={steal}")
+        check(reader.stats.retries > 0, "compare-shard: the remote store injected no fault")
+        done["remote"] += 1
+    # the halo-exchange scan, 8 shards on one card, shards narrower than m - 1 too
+    gen = np.random.RandomState(seed + 17)
+    for text in (torch.from_numpy(host[: sizes["distributed"]].copy()).to(DEVICE),
+                 torch.from_numpy(host[:64].copy()).to(DEVICE)):
+        find = port.distributed.make_distributed_find([DEVICE] * 8)
+        count = port.distributed.make_distributed_count([DEVICE] * 8)
+        for m in (2, 3, 4, 8, 9, 16, 17, 32, 64):
+            s = int(gen.randint(0, text.numel() - m + 1))
+            p = text[s : s + m].clone()
+            whole = port.epsm.find(text, p)
+            got = find(text, p)
+            torch.cuda.synchronize()
+            check(torch.equal(got, whole), f"distributed find n={text.numel()} m={m} != epsm.find")
+            check(int(count(text, p)) == int(whole.sum()), f"distributed count n={text.numel()} m={m}")
+            done["distributed"] += 1
+    return {"cases": done, "steal_events": steals, "faults_fired": fired, "max_abs_err": 0}
+
+
+def gbps(n: int, wall: float) -> float:
+    return n / wall / 1e9
+
+
+def main_shard(torch, np, port: Port, seed: int, host, pats, sizes: dict, smi: str) -> dict:
+    """The sharded stream at full size: the main stream's 4 GiB host genome
+    and 112 patterns through ShardedStreamScanner at 8 shards on the card
+    (static, and stealing at 2 and 4 lanes), faulted, remote and positions
+    runs, two processes in one gloo group, and the halo-exchange count on
+    1 GiB; every run between a counter reset and a counter read, every
+    answer held against a single StreamScanner (or epsm.count)."""
+    engine, stream, ss, fi = port.engine, port.stream, port.shard_stream, port.fi
+    plans = engine.compile_patterns(pats, device=DEVICE)
+    out = {}
+    launches = {name: 0 for name in port.wrappers}
+    builds = [0]
+    build_entry = port.ms_kernel._build_entry
+
+    def counted_build(plans_, spec):
+        builds[0] += 1
+        return build_entry(plans_, spec)
+
+    def run(label, make, fn, n):
+        """make() builds the scanner (its megascan tables counted), fn(sc)
+        is timed between a counter reset and a counter read."""
+        torch.cuda.synchronize()
+        port.reset_launches()
+        builds[0] = 0
+        sc = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(sc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = port.launches()
+        if not label.startswith("single"):  # the single scanner runs are the comparisons
+            for name, v in got.items():
+                launches[name] += v
+        out[label] = {"bytes": n, "wall_s": wall, "GB_per_s": gbps(n, wall), "table_builds": builds[0],
+                      "launches": {k: v for k, v in got.items() if v},
+                      "dispatch_count": getattr(sc, "dispatch_count", None)}
+        return sc, res
+
+    def sharded(n_shards=8, **kw):
+        return lambda: ss.ShardedStreamScanner(plans, n_shards, "auto", devices=[DEVICE], **kw)
+
+    port.ms_kernel._build_entry = counted_build
+    try:
+        n = sizes["genome"]
+        single, want = run("single", lambda: stream.StreamScanner(plans, "auto"),
+                           lambda sc: sc.count_many(host[:n]), n)
+        check(out["single"]["table_builds"] == 1, "single: megascan tables built more than once")
+        for label, kw in (("sharded8", {}), ("steal2", {"steal": True, "steal_workers": 2}),
+                          ("steal4", {"steal": True, "steal_workers": 4})):
+            sc, got = run(label, sharded(**kw), lambda sc: sc.count_many(host[:n]), n)
+            check(np.array_equal(got, want), f"{label}: counts != single StreamScanner")
+            ms = out[label]["launches"].get("megascan", 0)
+            check(ms == sc.dispatch_count, f"{label}: megascan launches {ms} != dispatches {sc.dispatch_count}")
+            check(out[label]["table_builds"] == 1, f"{label}: megascan tables built {builds[0]} times")
+            out[label]["steal_events"] = len(sc.steal_events)
+            if label == "sharded8":
+                expect = shard_windows(sc.shard_spec(n), single.window_bytes, single.step_bytes)
+                check(ms == expect, f"sharded8: launches {ms} != windows of the shards {expect}")
+                out[label]["windows"] = expect
+            emit({"phase": "main-shard", "run": label, **out[label], "single_GB_per_s": out["single"]["GB_per_s"],
+                  "card": smi})
+        # the stealing run, traced with fenced spans, through the validator
+        rec = port.Recorder(enabled=True, fence=True)
+        sc, got = run("steal4_traced", sharded(steal=True, steal_workers=4, recorder=rec),
+                      lambda sc: sc.count_many(host[:n]), n)
+        check(np.array_equal(got, want), "traced steal: counts != single")
+        done = sorted((e["start"], e["stop"]) for e in rec.events_named("range_done"))
+        check(port.sharding.merge_ranges(done) == ((0, n),) and sum(e - s for s, e in done) == n,
+              "range_done events do not tile the stream exactly once")
+        trace = ROOT / "build" / "shard_trace.json"
+        trace.parent.mkdir(parents=True, exist_ok=True)
+        rec.export_trace(trace)
+        val = subprocess.run([sys.executable, str(ROOT / "benchmarks" / "validate_trace.py"), str(trace)],
+                             capture_output=True, text=True, timeout=300)
+        check(val.returncode == 0, f"shard trace validation failed: {val.stdout} {val.stderr}")
+        emit({"phase": "main-shard", "run": "steal4_traced", **out["steal4_traced"],
+              "range_done": len(done), "steal_events": len(sc.steal_events),
+              "span_ms": rec.span_totals_ms(), "validate_trace": val.stdout.strip()})
+        # 1 GiB through a seeded fault plan, stealing at 4 lanes
+        nf = sizes["faulted"]
+        _, want_f = run("single_1GiB", lambda: stream.StreamScanner(plans, "auto"),
+                        lambda sc: sc.count_many(host[:nf]), nf)
+        # every rate applies at every site (open, each 64 KiB piece, each
+        # shard attempt): ~3 faults a 128 MiB shard, each rescanning its range
+        plan = fi.FaultPlan(seed, read_error_rate=0.0005, truncate_rate=0.0005, latency_rate=0.001,
+                            latency_s=0.01, crash_rate=0.0005, attempts_per_fault=1)
+        sc, got = run("faulted", sharded(steal=True, steal_workers=4, max_retries=16, fault_plan=plan,
+                                         backoff=port.ft.BackoffPolicy(base_s=0.0, jitter=0.0)),
+                      lambda sc: sc.count_many(fi.FaultyRangeSource(host[:nf], plan)), nf)
+        check(np.array_equal(got, want_f), "faulted: counts != single StreamScanner")
+        ms = out["faulted"]["launches"].get("megascan", 0)
+        check(ms >= sc.dispatch_count and plan.events, "faulted: launches < dispatches, or no fault fired")
+        emit({"phase": "main-shard", "run": "faulted", **out["faulted"], "retries": len(sc.events),
+              "faults": plan.counts_by_action(), "steal_events": len(sc.steal_events),
+              "single_GB_per_s": out["single_1GiB"]["GB_per_s"]})
+        # 1 GiB through a remote range reader over a fake object store
+        store = port.remote.FakeObjectStore(host[:nf], plan=fi.FaultPlan(
+            seed + 1, read_error_rate=0.01, truncate_rate=0.01, attempts_per_fault=1))
+        reader = store.reader(retries=3, sleep=lambda s: None)
+        sc, got = run("remote", sharded(max_retries=2), lambda sc: sc.count_many(reader), nf)
+        check(np.array_equal(got, want_f), "remote: counts != single StreamScanner")
+        emit({"phase": "main-shard", "run": "remote", **out["remote"],
+              "reader": vars(reader.stats), "single_GB_per_s": out["single_1GiB"]["GB_per_s"]})
+        # positions of 14 of the patterns over 256 MiB
+        npos = sizes["positions"]
+        subset = position_subset(pats)
+        pplans = engine.compile_patterns(subset, device=DEVICE)
+        _, want_pos = run("single_positions", lambda: stream.StreamScanner(pplans, "auto"),
+                          lambda sc: sc.positions_many(host[:npos]), npos)
+        _, got_pos = run("positions", lambda: ss.ShardedStreamScanner(pplans, 8, "auto", devices=[DEVICE]),
+                         lambda sc: sc.positions_many(host[:npos]), npos)
+        for row, (a, b) in enumerate(zip(got_pos, want_pos)):
+            check(np.array_equal(a, b), f"positions row {row}: sharded != single")
+        emit({"phase": "main-shard", "run": "positions", "patterns": len(subset), **out["positions"],
+              "single_GB_per_s": out["single_positions"]["GB_per_s"],
+              "positions": int(sum(len(r) for r in got_pos))})
+        # two processes on the one card, one gloo group
+        nc = sizes["children"]
+        _, want_c = run("single_children", lambda: stream.StreamScanner(plans, "auto"),
+                        lambda sc: sc.count_many(host[:nc]), nc)
+        kids = shard_children(np, host[:nc], pats, subset, npos)
+        for rank, got in enumerate(kids["results"]):
+            check(np.array_equal(got["counts"], want_c), f"child {rank}: counts != single StreamScanner")
+            for row, (a, b) in enumerate(zip(got["positions"], want_pos)):
+                check(np.array_equal(a, b), f"child {rank}: positions row {row} != single")
+            check(got["launches"] == got["dispatch_count"], f"child {rank}: launches != dispatches")
+            for name, v in got["every"].items():
+                launches[name] += v
+        spec = ss.ShardedStreamScanner(plans, 8, single.chunk_bytes, devices=[DEVICE]).shard_spec(nc)
+        expect = shard_windows(spec, single.window_bytes, single.step_bytes)
+        check(sum(g["dispatch_count"] for g in kids["results"]) == expect,
+              "two processes: their dispatches are not the windows of the 8 shards")
+        emit({"phase": "main-shard", "run": "two_processes", "bytes": nc, "wall_s": kids["wall_s"],
+              "scan_s": [g["scan_s"] for g in kids["results"]],
+              "GB_per_s": gbps(nc, max(g["scan_s"] for g in kids["results"])),
+              "single_GB_per_s": out["single_children"]["GB_per_s"],
+              "dispatch_count": [g["dispatch_count"] for g in kids["results"]],
+              "megascan_launches": [g["launches"] for g in kids["results"]], "windows": expect,
+              "child_launches": [g["every"] for g in kids["results"]]})
+    finally:
+        port.ms_kernel._build_entry = build_entry
+    # the halo-exchange count on 1 GiB: 8 shards on the card, one of each EPSM kernel
+    nd = sizes["distributed"]
+    text = torch.from_numpy(host[:nd]).to(DEVICE)
+    count = port.distributed.make_distributed_count([DEVICE] * 8)
+    dist_runs = {}
+    for m in (3, 8, 32):
+        (q,) = port.corpus.extract_patterns(host[:nd], m, 1, seed=700 + m)
+        p = torch.from_numpy(q.copy()).to(DEVICE)
+        algo = port.epsm.select_algo(m)
+        _, got = run(f"distributed_m{m}", lambda: None, lambda _: count(text, p), nd)
+        want = int(port.epsm.count(text, p))
+        epsm_launches = out[f"distributed_m{m}"]["launches"]
+        check(epsm_launches == {algo: 8}, f"distributed m={m}: launches {epsm_launches} != {{{algo}: 8}}")
+        check(int(got) == want >= 1, f"distributed m={m}: {int(got)} != epsm.count {want} (or 0)")
+        dist_runs[m] = {"count": want, "wall_s": out[f"distributed_m{m}"]["wall_s"], "launches": epsm_launches}
+    emit({"phase": "main-shard", "run": "distributed", "bytes": nd, "shards": 8, "runs": dist_runs})
+    del text
+    return {"launches": launches, "runs": out}
+
+
+SHARD_CHILD_TIMEOUT_S = 300
+
+
+def shard_children(np, text, pats, subset, npos: int) -> dict:
+    """Start two children of this script, one gloo group on 127.0.0.1, each
+    scanning its shards (i % 2 == rank) of ``text`` (a file they read) on
+    the card; returns what each wrote.  A child that fails or outlasts its
+    timeout fails the phase; none outlives this call."""
+    import socket
+
+    work = ROOT / "build" / "shard_children"
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "genome.bin").write_bytes(text.tobytes())
+    np.savez(work / "patterns.npz", n=len(pats), subset=len(subset), npos=npos,
+             **{f"p{i}": p for i, p in enumerate(pats)}, **{f"s{i}": p for i, p in enumerate(subset)})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_no = s.getsockname()[1]
+    t0 = time.perf_counter()
+    logs = [open(work / f"rank{rank}.log", "w") for rank in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--shard-child", str(rank),
+                               "--coordinator", f"127.0.0.1:{port_no}", "--child-dir", str(work)],
+                              stdout=logs[rank], stderr=subprocess.STDOUT)
+             for rank in range(2)]
+    try:
+        deadline = time.perf_counter() + SHARD_CHILD_TIMEOUT_S
+        for rank, proc in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            log = (work / f"rank{rank}.log").read_text()[-4000:]
+            check(rc == 0, f"shard child {rank} exited {rc} (None: timed out): {log}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    wall = time.perf_counter() - t0
+    results = []
+    for rank in range(2):
+        z = np.load(work / f"rank{rank}.npz")
+        results.append({"counts": z["counts"], "positions": np.split(z["positions"], np.cumsum(z["lens"])[:-1]),
+                        "launches": int(z["launches"]), "dispatch_count": int(z["dispatch_count"]),
+                        "scan_s": float(z["scan_s"]),
+                        "every": {str(k): int(v) for k, v in zip(z["names"], z["every"]) if v}})
+    for f in work.iterdir():
+        f.unlink()
+    work.rmdir()
+    return {"results": results, "wall_s": wall}
+
+
+def shard_child(args) -> int:
+    """One rank of the two-process run: join the gloo group, scan this
+    rank's shards of the genome file (counts, then positions of the subset
+    over its first bytes), write the merged answers for the parent."""
+    import numpy as np
+
+    port = Port()
+    work = Path(args.child_dir)
+    z = np.load(work / "patterns.npz")
+    pats = [z[f"p{i}"] for i in range(int(z["n"]))]
+    subset = [z[f"s{i}"] for i in range(int(z["subset"]))]
+    rank, world = port.mesh.init_stream_cluster(args.coordinator, 2, args.shard_child)
+    check((rank, world) == (args.shard_child, 2), f"child joined as {(rank, world)}")
+    plans = port.engine.compile_patterns(pats, device=DEVICE)
+    sc = port.shard_stream.ShardedStreamScanner(plans, 8, "auto", devices=[DEVICE])
+    port.reset_launches()
+    t0 = time.perf_counter()
+    counts = sc.count_many(work / "genome.bin")
+    scan_s = time.perf_counter() - t0
+    launches = port.launches()["megascan"]
+    pplans = port.engine.compile_patterns(subset, device=DEVICE)
+    pos = port.shard_stream.ShardedStreamScanner(pplans, 8, "auto", devices=[DEVICE]).positions_many(
+        work / "genome.bin", total_bytes=int(z["npos"]))
+    every = port.launches()  # the count and the positions runs
+    np.savez(work / f"rank{rank}.npz", counts=counts, positions=np.concatenate(pos),
+             lens=np.asarray([len(p) for p in pos]), launches=launches, dispatch_count=sc.dispatch_count,
+             scan_s=scan_s, names=np.asarray(list(every)), every=np.asarray(list(every.values())))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # the two-process run of main-shard starts this script twice with these
+    ap.add_argument("--shard-child", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--coordinator", help=argparse.SUPPRESS)
+    ap.add_argument("--child-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.shard_child is not None:
+        return shard_child(args)
 
     import numpy as np
     import torch
@@ -2068,6 +2503,23 @@ def main() -> int:
     emit({"phase": "main-serve", "seconds": round(time.perf_counter() - t0, 3)})
     # the main path launches acscan's counts mode (count_automaton)
     launches["acscan"] = dicts["launches"]["acscan_counts"] + served["acscan_counts_launches"]
+    t0 = time.perf_counter()
+    compared_sh = compare_shard(torch, np, port, args.seed, streamed["host"], streamed["pats"],
+                                {"texts": (40, 203, MIB + 7, 6 * MIB + 13), "chunk": 256 * 1024,
+                                 "positions_max": 2 * MIB, "distributed": 8 * MIB})
+    emit({"phase": "compare-shard", **compared_sh, "equal": True,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    sharded = main_shard(torch, np, port, args.seed, streamed["host"], streamed["pats"],
+                         {"genome": 4 * GIB, "faulted": GIB, "positions": 256 * MIB,
+                          "children": 512 * MIB, "distributed": GIB}, smi)
+    emit({"phase": "main-shard", "launches": sharded["launches"],
+          "seconds": round(time.perf_counter() - t0, 3)})
+    del streamed["host"]
+    # every launch of the sharded path: megascan a count window, multipattern
+    # for the 'b' groups of a positions window, EPSM 8 a distributed count
+    for name, v in sharded["launches"].items():
+        launches["acscan" if name == "acscan_counts" else name] += v
     rows = timing(torch, port, args.seed, GIB)
     rows["multipattern"] = timing_multipattern(torch, port, args.seed, 8, 8 * MIB, 32)
     rows.update(timing_stream_approx(torch, np, port, args.seed, 64 * MIB,

@@ -40,6 +40,13 @@ from repro_torch.core.stream import (
     find_stream,
     stream_count,
 )
+from repro_torch.core.shard_stream import (
+    PartialScanResult,
+    ShardedStreamScanner,
+    StealEvent,
+    shard_stream_count,
+)
+from repro_torch.core.remote_source import FakeObjectStore, RemoteRangeReader
 
 __all__ = [
     "Compressed",
@@ -47,9 +54,14 @@ __all__ = [
     "EPSMB_MAX",
     "EPSMC_BETA",
     "EPSMC_KBITS",
+    "FakeObjectStore",
     "FingerprintBank",
+    "PartialScanResult",
     "PatternPlan",
     "PatternSet",
+    "RemoteRangeReader",
+    "ShardedStreamScanner",
+    "StealEvent",
     "StreamScanner",
     "TextIndex",
     "any_many",
@@ -70,5 +82,6 @@ __all__ = [
     "positions",
     "select_algo",
     "select_algo_tuned",
+    "shard_stream_count",
     "stream_count",
 ]

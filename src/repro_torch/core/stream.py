@@ -37,6 +37,7 @@ bytes as an exact one, so the overlap/attribution argument is untouched.
 
 from __future__ import annotations
 
+import copy
 import logging
 import time
 from collections import deque
@@ -430,6 +431,11 @@ class StreamScanner:
                     reason="megascan ineligible for this plan set; "
                     "using the pure-PyTorch fused path",
                 )
+        # on the card the first count dispatch takes the megascan tables and
+        # the scanner holds them for its whole life, so a launch never reads
+        # tables the kernel's cache dropped; replicas share the holder, so a
+        # sharded scan builds them once
+        self._held: list = []
         if chunk_bytes == "auto":
             chunk_bytes = auto_chunk_bytes(device=self.device)
             self.rec.event(
@@ -451,6 +457,16 @@ class StreamScanner:
         self.watchdog = watchdog
         self.on_straggler = on_straggler
         self._ring: Optional[_HostRing] = None
+
+    def replica(self, lane: Optional[str] = None) -> "StreamScanner":
+        """A scanner of the same plans, megascan spec and tables and the same
+        window, with its own host ring and dispatch count: one per thread or
+        shard of a sharded scan, none rebuilding what this one built."""
+        twin = copy.copy(self)
+        twin.lane = lane
+        twin.dispatch_count = 0
+        twin._ring = None
+        return twin
 
     # -- host-side re-chunking ---------------------------------------------
 
@@ -578,6 +594,10 @@ class StreamScanner:
             if self.spec is not None:
                 from repro_torch.kernels.megascan.ops import megascan_count_window
 
+                if not self._held and self.device.type == "cuda":
+                    from repro_torch.kernels.megascan.megascan import kernel_entry
+
+                    self._held.append(kernel_entry(self.plans, self.spec))
                 megascan_count_window(window_dev, self.plans, self.spec, length=int(length),
                                       prev_ov=int(prev_ov), out=counts)
             else:

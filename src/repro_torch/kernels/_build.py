@@ -6,6 +6,11 @@ built at first use, from the sources in this package only, into
 ``<repo>/build/kernels/`` under a name that carries a hash of the sources and
 flags, so an edited source is rebuilt.  A failed build raises with nvcc's
 stderr; nothing falls back to the plain versions.
+
+Building, loading and counting launches are safe from several threads (the
+lanes of a sharded scan): a module lock serializes builds and loads, so a
+library is compiled once per process, and each nvcc writes a temporary file
+named by process and thread before it is renamed into place.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -30,6 +36,15 @@ NVCC_FLAGS = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCTIONS: Dict[tuple, ctypes._CFuncPtr] = {}
+# Serializes build, load and function across threads; it is reentrant
+# because load builds and function loads.
+_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
+
+
+class KernelLaunchError(RuntimeError):
+    """A C launcher returned a CUDA error: a failure of the card, which no
+    retry of the fault fabric treats as a source error."""
 
 
 def _nvcc() -> str:
@@ -50,6 +65,11 @@ def _target(name: str) -> Path:
 def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     """Compile every library that is not built yet, one nvcc per source, all
     running at once.  Returns the library path of each name."""
+    with _LOCK:
+        return _build_locked(names)
+
+
+def _build_locked(names: Iterable[str]) -> Dict[str, Path]:
     targets = {name: _target(name) for name in names}
     todo = {name: so for name, so in targets.items() if not so.exists()}
     if not todo:
@@ -58,7 +78,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
     nvcc = _nvcc()
     procs = {}
     for name, so in todo.items():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     errors = []
@@ -75,11 +95,12 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        _LIBS[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _LIBS[name] = lib
+        return lib
 
 
 PTR = ctypes.c_void_p
@@ -101,11 +122,21 @@ def function(lib_name: str, fn_name: str, argtypes) -> ctypes._CFuncPtr:
     cached per (library, name): a launch sets no ``argtypes`` again."""
     fn = _FUNCTIONS.get((lib_name, fn_name))
     if fn is None:
-        fn = getattr(load(lib_name), fn_name)
-        fn.argtypes = [*argtypes, PTR]  # the stream comes last
-        fn.restype = ctypes.c_int
-        _FUNCTIONS[lib_name, fn_name] = fn
+        with _LOCK:
+            fn = _FUNCTIONS.get((lib_name, fn_name))
+            if fn is None:
+                fn = getattr(load(lib_name), fn_name)
+                fn.argtypes = [*argtypes, PTR]  # the stream comes last
+                fn.restype = ctypes.c_int
+                _FUNCTIONS[lib_name, fn_name] = fn
     return fn
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a wrapper's ``launches`` counter (read-modify-write under
+    a lock: lanes launch from several threads)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def stream_of(t: torch.Tensor) -> int:
@@ -118,7 +149,7 @@ def raise_on_error(lib_name: str, rc: int) -> None:
         lib = load(lib_name)
         lib.epsm_error_string.restype = ctypes.c_char_p
         msg = lib.epsm_error_string(ctypes.c_int(rc)).decode()
-        raise RuntimeError(f"{lib_name} kernel launch failed: {msg} (cudaError {rc})")
+        raise KernelLaunchError(f"{lib_name} kernel launch failed: {msg} (cudaError {rc})")
 
 
 def on_device(t: torch.Tensor, kernel, plain):

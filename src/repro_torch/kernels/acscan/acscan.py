@@ -108,7 +108,7 @@ def acscan_cuda(text: torch.Tensor, classes: torch.Tensor, table: torch.Tensor, 
         return out
     config = _launch(text, classes, table, n_classes, max_m, seg, out, False, 0, None, 0,
                      _table, None, _lanes, _threads, _one_block)
-    acscan_cuda.launches += 1
+    _build.count_launch(acscan_cuda)
     acscan_cuda.config = config
     return out
 
@@ -147,7 +147,7 @@ def acscan_counts_cuda(text: torch.Tensor, classes: torch.Tensor, table: torch.T
     config = _launch(text, classes, table, n_classes, max_m, seg, out, True, n_term, lengths,
                      0 if end_min is None else max(0, int(end_min)), _table, _hist, _lanes,
                      _threads, _one_block)
-    acscan_counts_cuda.launches += 1
+    _build.count_launch(acscan_counts_cuda)
     acscan_counts_cuda.config = config
     return out
 

@@ -181,7 +181,7 @@ def approx_cuda(texts: torch.Tensor, patterns: torch.Tensor, anchors: torch.Tens
                 None if tables is None else tables.data_ptr(), SALTS, int(FP_MULT),
                 out.data_ptr(), _build.stream_of(texts))
     _build.raise_on_error("approx", rc)
-    approx_cuda.launches += 1
+    _build.count_launch(approx_cuda)
     return out
 
 

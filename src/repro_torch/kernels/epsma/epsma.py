@@ -25,7 +25,7 @@ def epsma_cuda(text: torch.Tensor, pattern: torch.Tensor) -> torch.Tensor:
         rc = fn(text.data_ptr(), n, pattern.data_ptr(), m, out.data_ptr(),
                 _build.stream_of(text))
     _build.raise_on_error("epsma", rc)
-    epsma_cuda.launches += 1
+    _build.count_launch(epsma_cuda)
     return out
 
 

@@ -29,7 +29,7 @@ def epsmb_cuda(text: torch.Tensor, pattern: torch.Tensor, *,
         rc = fn(text.data_ptr(), n, pattern.data_ptr(), m, int(fuse_verify),
                 out.data_ptr(), _build.stream_of(text))
     _build.raise_on_error("epsmb", rc)
-    epsmb_cuda.launches += 1
+    _build.count_launch(epsmb_cuda)
     return out
 
 

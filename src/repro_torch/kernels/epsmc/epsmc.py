@@ -39,7 +39,7 @@ def epsmc_cuda(text: torch.Tensor, pattern: torch.Tensor) -> torch.Tensor:
         rc = fn(text.data_ptr(), n, pattern.data_ptr(), m, _epsmc_stride(m, EPSMC_BETA),
                 weights, table.data_ptr(), out.data_ptr(), _build.stream_of(text))
     _build.raise_on_error("epsmc", rc)
-    epsmc_cuda.launches += 1
+    _build.count_launch(epsmc_cuda)
     return out
 
 

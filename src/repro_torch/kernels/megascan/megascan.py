@@ -10,14 +10,20 @@ its design is described in the CUDA source.
 Everything a launch needs besides the window is built once per (spec,
 plans) and cached (``group_table``): the device array of Group records,
 the private pattern-id tables of the 'a' and 'b' groups, and the launch's
-static arguments.  A call only checks its window and launches.
+static arguments.  A call only checks its window and launches.  The cache
+is locked (the lanes of a sharded scan launch from several threads) and
+never drops an entry that someone still holds: a ``StreamScanner`` on the
+card keeps its entry (``kernel_entry``) for its whole life, so no launch of
+its reads tables that were freed under it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
+import weakref
 from collections import OrderedDict
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -116,16 +122,26 @@ _ARGTYPES = [PTR, I64, I64, I64, PTR, ctypes.c_int, ctypes.c_int, ctypes.c_int, 
              _Weights, _Salts, ctypes.c_uint32, PTR]
 
 
-class _Entry(NamedTuple):
-    spec: object
-    plans: tuple
-    device: torch.device
-    table: torch.Tensor   # the Group records on the card
-    keep: list            # every tensor the records point to
-    args: tuple           # the launch's arguments after the three window ones
+class _Entry:
+    """What a launch of (plans, spec) reads besides its window."""
+
+    __slots__ = ("spec", "plans", "device", "table", "keep", "args", "__weakref__")
+
+    def __init__(self, spec, plans: tuple, device: torch.device, table: torch.Tensor,
+                 keep: list, args: tuple):
+        self.spec = spec
+        self.plans = plans
+        self.device = device
+        self.table = table  # the Group records on the card
+        self.keep = keep    # every tensor the records point to
+        self.args = args    # the launch's arguments after the three window ones
 
 
-# (id(spec), plan identities) -> _Entry; the entry holds the spec and plans
+# (id(spec), plan identities) -> _Entry.  An entry holds its spec and plans,
+# so their ids are not reused while it lives.  _LIVE finds every entry that
+# anyone holds; _TABLES keeps the most recent ones alive between scanners.
+_LOCK = threading.Lock()
+_LIVE: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
 _TABLES: "OrderedDict" = OrderedDict()
 _TABLES_MAX = 8
 
@@ -141,12 +157,23 @@ def private_table(plan, g) -> Optional[np.ndarray]:
     return None
 
 
-def _entry(plans, spec) -> _Entry:
+def kernel_entry(plans, spec) -> _Entry:
+    """The cached launch entry of (plans, spec), built on first use.  Whoever
+    keeps the returned object keeps its tables on the card: the cache never
+    rebuilds or frees an entry that is still held."""
     key = (id(spec), *map(id, plans))
-    ent = _TABLES.get(key)
-    if ent is not None and ent.spec is spec:
+    with _LOCK:
+        ent = _LIVE.get(key)
+        if ent is None:
+            ent = _LIVE[key] = _build_entry(plans, spec)
+        _TABLES[key] = ent
         _TABLES.move_to_end(key)
+        if len(_TABLES) > _TABLES_MAX:
+            _TABLES.popitem(last=False)
         return ent
+
+
+def _build_entry(plans, spec) -> _Entry:
     if spec.tile != TILE:
         raise ValueError(f"megascan kernel is built for tile {TILE} (spec tile {spec.tile})")
     dev = plans[0].device
@@ -178,17 +205,13 @@ def _entry(plans, spec) -> _Entry:
     table = torch.frombuffer(bytearray(bytes(recs)), dtype=torch.uint8).to(dev)
     args = (table.data_ptr(), len(spec.groups), spec.p_total, spec.halo_back, spec.halo_fwd,
             _WEIGHTS, SALTS, int(FP_MULT))
-    ent = _Entry(spec, tuple(plans), dev, table, keep, args)
-    _TABLES[key] = ent
-    if len(_TABLES) > _TABLES_MAX:
-        _TABLES.popitem(last=False)
-    return ent
+    return _Entry(spec, tuple(plans), dev, table, keep, args)
 
 
 def group_table(plans, spec) -> torch.Tensor:
     """The device array of ``_Group`` records of (plans, spec), built once and
     cached with the private tables and operands its pointers reach."""
-    return _entry(plans, spec).table
+    return kernel_entry(plans, spec).table
 
 
 def megascan_cuda(window: torch.Tensor, plans, spec, *, length: int, prev_ov: int,
@@ -208,7 +231,7 @@ def megascan_cuda(window: torch.Tensor, plans, spec, *, length: int, prev_ov: in
                          f"(length={length}, n={n}, prev_ov={prev_ov})")
     if out.shape != (spec.p_total,) or out.dtype != torch.int32 or out.device != dev:
         raise ValueError(f"megascan: out must be ({spec.p_total},) int32 on {dev}")
-    ent = _entry(plans, spec)
+    ent = kernel_entry(plans, spec)
     if ent.device != dev:
         raise ValueError(f"megascan: plans must be on {dev}")
     if n == 0:
@@ -218,7 +241,7 @@ def megascan_cuda(window: torch.Tensor, plans, spec, *, length: int, prev_ov: in
         rc = fn(window.data_ptr(), n, int(length), int(prev_ov), *ent.args, out.data_ptr(),
                 _build.stream_of(window))
     _build.raise_on_error("megascan", rc)
-    megascan_cuda.launches += 1
+    _build.count_launch(megascan_cuda)
     return out
 
 

@@ -96,7 +96,7 @@ def multipattern_cuda(texts: torch.Tensor, anchors: torch.Tensor, m: int, lut: t
                 P, m, bitset.data_ptr(), int(kbits if use_lut else 17), int(use_lut), SALTS,
                 int(FP_MULT), out.data_ptr(), _build.stream_of(texts))
     _build.raise_on_error("multipattern", rc)
-    multipattern_cuda.launches += 1
+    _build.count_launch(multipattern_cuda)
     return out
 
 

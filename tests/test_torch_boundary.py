@@ -39,7 +39,10 @@ def test_import_leaves_jax_out():
         "repro_torch.kernels.epsmc.ops, repro_torch.kernels.multipattern.ops, repro_torch.obs, "
         "repro_torch.core.stream, repro_torch.approx, repro_torch.kernels.megascan.ops, "
         "repro_torch.kernels.approx.ops, repro_torch.core.automaton, "
-        "repro_torch.kernels.acscan.ops, repro_torch.serve.query_plane, repro_torch.serve.server; "
+        "repro_torch.kernels.acscan.ops, repro_torch.serve.query_plane, repro_torch.serve.server, "
+        "repro_torch.dist, repro_torch.dist.fault_tolerance, repro_torch.dist.fault_injection, "
+        "repro_torch.dist.sharding, repro_torch.dist.compat, repro_torch.launch.mesh, "
+        "repro_torch.core.remote_source, repro_torch.core.shard_stream, repro_torch.core.distributed; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )

@@ -104,7 +104,35 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 shard); every answer equal to a single StreamScanner's (or
                 epsm.count), megascan launches equal to the dispatches, GB/s
                 beside the single scanner's from the same run;
-  timing        median kernel times (CUDA events, queued behind a device sleep
+  compare-lm    the LM serving path on the card against its own run on the CPU
+                (float32, TF32 off, parameters from one seeded init): full
+                smollm-135m (byte vocab 257) and phi3.5-moe at full width
+                cut to 2 layers (16 experts, top-2, tokens dropped past
+                capacity at layer 0 on both sides, the dispatch equal), 4
+                prompts of 128 bytes: prefill logits and caches, 8
+                decode_steps and 8 decode_step_q8s (each side from its own
+                int8 caches), logits within LM_TOL (float) or LM_TOL_Q8
+                (int8) of the CPU's and equal greedy tokens wherever the
+                top-2 gap is wider than that;
+  main-lm       ServeEngine.generate at full smollm-135m width in bfloat16: 8
+                requests of 512 english bytes, 256 new tokens, max_len 1024;
+                greedy, then with each row's own 2-, 6- and 20-byte
+                substrings as stops (every row stops at the step and on the
+                stop an oracle names; one multipattern launch a step), then
+                the 6-byte ones with a byte changed at stop_k = 1 (one approx
+                launch a step), then twice sampled from one seed; prefill,
+                decode and stop-scan ms (fenced spans), tokens/s, peak
+                memory;
+  main-pipeline LMDataPipeline on the card with 4096 english blocklist
+                patterns of m 4..32 (141-142 a length): 256 MiB of english in
+                documents of 512 B - 64 KiB plus 8 of 1-4 MiB (one megascan
+                launch a window of contains_any_stream, over the set
+                recompiled flat) and 64 near-duplicates, then 64 MiB at
+                blocklist_k = 1, then 4 MiB of 512 B - 16 KiB documents with
+                64 near-duplicates and dedup; every verdict equal to a host
+                oracle, stats and batches equal to a host re-packing with an
+                independent dedup, routes and launches;
+  timing       median kernel times (CUDA events, queued behind a device sleep
                 so they exclude the wrapper's host time) beside the plain
                 versions' times and the bounds, and the times of epsm.find and
                 epsm.count around the EPSM kernels; megascan at the stream's
@@ -129,6 +157,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import gzip
 import json
 import logging
@@ -227,6 +256,12 @@ class Port:
         from repro_torch.dist import fault_injection, fault_tolerance, sharding
         from repro_torch.kernels.megascan import megascan as ms_kernel
         from repro_torch.launch import mesh
+        from repro_torch import configs
+        from repro_torch.data import pipeline
+        from repro_torch.models import common as lm_common
+        from repro_torch.models import moe as lm_moe
+        from repro_torch.models import transformer as tf
+        from repro_torch.serve import engine as serve_engine
 
         self.epsm, self.corpus, self.build = epsm, corpus, _build
         self.engine, self.mp, self.mp_ops = engine, multipattern, mp_ops
@@ -242,6 +277,8 @@ class Port:
         self.shard_stream, self.distributed, self.remote = shard_stream, distributed, remote_source
         self.fi, self.ft, self.ms_kernel, self.mesh = fault_injection, fault_tolerance, ms_kernel, mesh
         self.sharding = sharding
+        self.configs, self.pipeline, self.serve_engine = configs, pipeline, serve_engine
+        self.tf, self.lm_moe, self.lm_common = tf, lm_moe, lm_common
         self.wrappers = {"epsma": epsma_cuda, "epsmb": epsmb_cuda, "epsmc": epsmc_cuda,
                          "multipattern": multipattern_cuda, "megascan": megascan_cuda,
                          "approx": approx_cuda, "acscan": acscan_cuda,
@@ -2422,6 +2459,685 @@ def shard_child(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The byte-level LM serving path and the data pipeline (compare-lm, main-lm,
+# main-pipeline)
+# ---------------------------------------------------------------------------
+
+# compare-lm's tolerances, max |card - CPU| <= tol * max |CPU|.  Float32
+# with TF32 off on both sides, where only summation order and exp / rsqrt
+# differ (readings 1.5-2.5e-6; a TF32 product would miss it by 100x):
+LM_TOL = 1e-5
+# The int8 decode, each side from its own int8 caches: a value within an ulp
+# of a rounding tie lands one int8 step apart, and the PV product casts
+# p * v_scale and V to bfloat16 (2^-8 relative), so one ulp of float32 can
+# become one of bfloat16 (readings 4.2e-4 to 7.3e-4, about 3x headroom):
+LM_TOL_Q8 = 2e-3
+LM_PROMPT_BYTES = 128
+
+
+def lm_config(port: Port, arch: str, **kw):
+    """A registered LM architecture at full width, fields replaced by kw."""
+    return dataclasses.replace(port.configs.get_arch(arch).make_config(), **kw)
+
+
+def held(torch, got, want, what: str, tol: float = LM_TOL) -> float:
+    """max |card - CPU| / max |CPU| (both read as float32 on the host),
+    checked against tol."""
+    got, want = got.float().cpu(), want.float().cpu()
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    check(err <= tol, f"{what}: max |card - cpu| / max |cpu| = {err} > {tol}")
+    return err
+
+
+def greedy_agree(torch, card_logits, cpu_logits, what: str, tol: float) -> int:
+    """Equal argmax wherever the CPU's top-2 gap exceeds tol; returns how
+    many rows that held for."""
+    top2 = cpu_logits.topk(2, dim=-1).values
+    scale = float(cpu_logits.abs().max())
+    decided = (top2[:, 0] - top2[:, 1]) > tol * scale
+    same = card_logits.cpu().argmax(-1) == cpu_logits.argmax(-1)
+    check(bool(same[decided].all()), f"{what}: greedy tokens differ where the top-2 gap is wide")
+    return int(decided.sum())
+
+
+def moe_layer0_dispatch(torch, port: Port, params, cfg, tok):
+    """Layer 0's MoE dispatch one-hots for the prefill tokens: the routing
+    the prefill runs, recomputed from its inputs."""
+    tf, moe = port.tf, port.lm_moe
+    lp = params["layers"][0]
+    h = params["embed"][tok.long()].to(port.lm_common.dtype_of(cfg.dtype))
+    h, _ = tf._attn_block(h, lp, cfg, torch.arange(tok.shape[1], device=h.device))
+    x = port.lm_common.rmsnorm(h, lp["ln2"], cfg.norm_eps).reshape(-1, cfg.d_model)
+    g = min(cfg.moe_group, x.shape[0])
+    logits = x.float().reshape(-1, g, cfg.d_model) @ lp["moe"]["router"]
+    dispatch, _, _ = moe._route(logits, cfg.moe_cfg, moe.capacity(cfg.moe_cfg, g))
+    return dispatch
+
+
+def lm_compare_one(torch, np, port: Port, label: str, cfg, tokens, steps: int, seed: int) -> dict:
+    """Prefill, `steps` decode_steps and `steps` decode_step_q8s of one model
+    on the card and on the CPU from the same parameters (drawn on the card
+    from `seed`, copied to the host), fed the same tokens (the CPU's greedy
+    choice); logits and caches held within LM_TOL, each side's int8 caches
+    within one step and its int8 decode, from its own caches, within
+    LM_TOL_Q8."""
+    tf = port.tf
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, device=DEVICE)
+    host = port.lm_common.tree_map(lambda t: t.cpu(), params)
+    tok = torch.from_numpy(tokens)
+    B, S = tok.shape
+    row = {"model": label, "params": port.lm_common.param_count(params), "batch": B, "seq": S}
+    lg, kc, vc = tf.prefill(params, cfg, tok.to(DEVICE))
+    lh, kh, vh = tf.prefill(host, cfg, tok)
+    errs = {"prefill_logits": held(torch, lg, lh, f"{label} prefill logits"),
+            "kcache": held(torch, kc, kh, f"{label} prefill kcache"),
+            "vcache": held(torch, vc, vh, f"{label} prefill vcache")}
+    if cfg.is_moe:
+        dc = moe_layer0_dispatch(torch, port, params, cfg, tok.to(DEVICE))
+        dh = moe_layer0_dispatch(torch, port, host, cfg, tok)
+        check(torch.equal(dc.cpu(), dh), f"{label}: layer-0 MoE dispatch differs")
+        dropped = cfg.moe_top_k * B * S - int(dh.sum())
+        check(dropped > 0, f"{label}: no token was dropped")
+        row["layer0_dropped_assignments"] = dropped
+    caches = {}
+    for side, dev, k, v in (("card", DEVICE, kc, vc), ("cpu", "cpu", kh, vh)):
+        kf, vf = tf.make_cache(cfg, B, S + steps, torch.float32, device=dev)
+        kf[:, :, :S], vf[:, :, :S] = k, v
+        caches[side] = {"fp": (kf, vf), "q8": tf.quantize_cache(kf, vf)}
+    # a value within a few ulps of a rounding tie may land one int8 step
+    # apart; each side then decodes from its own int8 caches
+    steps_apart = [(caches["card"]["q8"][i]["q"].cpu().int() - caches["cpu"]["q8"][i]["q"].int()).abs()
+                   for i in (0, 1)]
+    q8_diff = max(int(d.max()) for d in steps_apart)
+    check(q8_diff <= 1, f"{label}: quantized prefill caches differ by {q8_diff} steps")
+    row["q8_cache_max_step_diff"] = q8_diff
+    row["q8_cache_values_apart"] = sum(int((d > 0).sum()) for d in steps_apart)
+    row["q8_cache_values"] = sum(d.numel() for d in steps_apart)
+    for i, name in ((0, "kscale"), (1, "vscale")):
+        held(torch, caches["card"]["q8"][i]["scale"], caches["cpu"]["q8"][i]["scale"],
+             f"{label} prefill {name}")
+    decided = {}
+    for mode, step_fn, tol in (("fp", tf.decode_step, LM_TOL), ("q8", tf.decode_step_q8, LM_TOL_Q8)):
+        card_l, cpu_l = lg, lh
+        worst, n_decided = 0.0, 0
+        (kd, vd), (kcpu, vcpu) = caches["card"][mode], caches["cpu"][mode]
+        for step in range(steps):
+            nxt = cpu_l.argmax(-1)[:, None]
+            card_l, kd, vd = step_fn(params, cfg, nxt.to(DEVICE), S + step, kd, vd)
+            cpu_l, kcpu, vcpu = step_fn(host, cfg, nxt, S + step, kcpu, vcpu)
+            worst = max(worst, held(torch, card_l, cpu_l, f"{label} {mode} decode step {step}", tol))
+            n_decided += greedy_agree(torch, card_l, cpu_l, f"{label} {mode} decode step {step}", tol)
+        errs[f"decode_{mode}"] = worst
+        decided[mode] = n_decided
+    del params, host, caches
+    torch.cuda.empty_cache()
+    return {**row, "max_rel_err": errs, "greedy_rows_compared": decided,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def compare_lm(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """The LM path on the card against its own plain run on the CPU: full
+    smollm-135m (byte vocab, float32) and phi3.5-moe at full width cut to
+    sizes["moe_layers"] layers, B = 4 prompts of 128 english bytes after BOS;
+    the MoE's last two rows repeat one byte, so layer 0 routes most of their
+    tokens alike and drops past capacity."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    english = port.corpus.english(MIB, seed)
+    B, S = 4, LM_PROMPT_BYTES
+    rows = np.stack([english[i * 4096 : i * 4096 + S] for i in range(B)]).astype(np.int64)
+    tokens = np.concatenate([np.full((B, 1), port.pipeline.BOS), rows], axis=1)
+    moe_tokens = tokens.copy()
+    moe_tokens[2:, 1:] = ord("e")
+    out = [lm_compare_one(torch, np, port, "smollm-135m",
+                          lm_config(port, "smollm-135m", vocab=port.pipeline.VOCAB,
+                                    dtype="float32", param_dtype="float32"),
+                          tokens, sizes["steps"], seed),
+           lm_compare_one(torch, np, port, f"phi3.5-moe-42b-a6.6b, {sizes['moe_layers']} layers",
+                          lm_config(port, "phi3.5-moe-42b-a6.6b", n_layers=sizes["moe_layers"],
+                                    dtype="float32", param_dtype="float32"),
+                          moe_tokens, sizes["steps"], seed + 1)]
+    return {"models": out, "tolerance": LM_TOL, "tolerance_q8": LM_TOL_Q8}
+
+
+def profile_units(torch, fn, units: int) -> dict:
+    """Where `units` calls of fn spend their time: the host wall a call
+    (unprofiled, synchronized), and from one torch.profiler pass over
+    `units` more calls the device time, kernel launches and host syncs a
+    call, the device's idle share (1 - device / wall) and the operators
+    with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(units):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / units
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(units):
+            fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    # the device's own events (kernels, copies, fills); an operator's self
+    # device time repeats its kernels' and is not summed again
+    device_ms = sum(e.self_device_time_total for e in ev
+                    if e.device_type == DeviceType.CUDA) / 1e3 / units
+    launches = sum(e.count for e in ev if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                     "cuLaunchKernelEx", "cudaLaunchKernelExC"))
+    syncs = sum(e.count for e in ev if e.key == "cudaStreamSynchronize")
+    top = sorted((e for e in ev if e.device_type != DeviceType.CUDA and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:6]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": max(0.0, 1.0 - device_ms / wall_ms) if device_ms else None,
+            "launches": launches / units, "stream_syncs": syncs / units,
+            "top_device_ms": [[e.key[:48], e.count / units, e.self_device_time_total / 1e3 / units]
+                              for e in top]}
+
+
+def first_end(text: bytes, stop: bytes, k: int):
+    """The end of the first window of `text` within k mismatches of `stop`
+    (k = 0: bytes.find), or None."""
+    m = len(stop)
+    if k == 0:
+        i = text.find(stop)
+        return None if i < 0 else i + m
+    for e in range(m, len(text) + 1):
+        if sum(a != b for a, b in zip(text[e - m : e], stop)) <= k:
+            return e
+    return None
+
+
+def stop_oracle(text: bytes, stops, k: int):
+    """(end, stop index) of the stop that ends first in `text`, the first
+    in stop order on a tie; None if none occurs."""
+    best = None
+    for si, s in enumerate(stops):
+        e = first_end(text, s, k)
+        if e is not None and (best is None or e < best[0]):
+            best = (e, si)
+    return best
+
+
+def check_stops(base, res, stops, k: int, new: int, what: str) -> int:
+    """Each row stopped where the oracle says, on the stop it names; returns
+    the decode steps the engine took (the last row's last step + 1).  In
+    the run without stops a row ends on BOS (not in its text) or after
+    `new` tokens."""
+    last = 0
+    for b, (r0, r) in enumerate(zip(base, res)):
+        hit = stop_oracle(r0.text, stops, k)
+        if hit is None:
+            check(r.text == r0.text and r.stopped_by is None, f"{what}: row {b} stopped")
+            done = min(len(r0.text), new - 1)
+        else:
+            e, si = hit
+            check(r.text == r0.text[:e], f"{what}: row {b} text")
+            check(r.stopped_by == stops[si], f"{what}: row {b} stopped by {r.stopped_by!r}")
+            done = e - 1
+        last = max(last, done)
+    return last + 1
+
+
+def cut_stop(text: bytes, m: int, at: int):
+    return None if len(text) < m else text[min(at, len(text) - m) :][:m]
+
+
+def main_lm(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """ServeEngine.generate on the card at full smollm-135m width (bfloat16,
+    byte vocab): 8 requests of 512 english bytes, 256 new tokens, max_len
+    1024.  Greedy with no stops; again with each row's own 2-, 6- and
+    20-byte substrings as stops (every row must stop at the step and on the
+    stop bytes.find names in the first run's output), and with the 6- and
+    20-byte ones alone; again with the 6-byte ones one byte changed at
+    stop_k = 1 (a Hamming oracle); and twice at temperature 0.7 from one
+    seed (equal tokens)."""
+    B, new, max_len = sizes["batch"], sizes["new_tokens"], sizes["max_len"]
+    cfg = lm_config(port, "smollm-135m", vocab=port.pipeline.VOCAB)
+    params = port.tf.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, device=DEVICE)
+    eng = port.serve_engine.ServeEngine(params, cfg, max_len=max_len, device=DEVICE)
+    english = port.corpus.english(4 * MIB, seed + 2)
+    prompts = [english[i * 65536 : i * 65536 + sizes["prompt"]].tobytes() for i in range(B)]
+    eng.generate(prompts, max_new_tokens=4)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    base = eng.generate(prompts, max_new_tokens=new)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    generated = sum(len(r.text) for r in base)
+
+    out = {"phase": "main-lm", "model": "smollm-135m", "dtype": cfg.dtype, "batch": B,
+           "prompt_bytes": sizes["prompt"], "new_tokens": new, "max_len": max_len,
+           "generated_tokens": generated, "wall_s": wall, "tokens_per_s": generated / wall,
+           "peak_device_gib": peak / GIB, "launches": {}}
+    runs = {}
+    stops = [s for r in base for s in (cut_stop(r.text, 2, 60), cut_stop(r.text, 6, 120),
+                                        cut_stop(r.text, 20, 200)) if s is not None]
+    fuzzy = []
+    for r in base:
+        s = cut_stop(r.text, 6, 120)
+        if s is not None:
+            fuzzy.append(s[:2] + bytes([s[2] ^ 0x20]) + s[3:])
+    check(len(stops) > 0 and len(fuzzy) > 0, "main-lm: outputs too short for stop strings")
+    # the 2-byte stops tend to fire first; a run without them lets the 6-
+    # and 20-byte ones stop rows too
+    long_stops = [s for s in stops if len(s) > 2]
+    for name, ss, k in (("stops", stops, 0), ("long_stops", long_stops, 0), ("fuzzy", fuzzy, 1)):
+        rec = port.Recorder(enabled=True, fence=True)
+        port.reset_launches()
+        res = eng.generate(prompts, max_new_tokens=new, stop_strings=ss, stop_k=k, recorder=rec)
+        launches = port.launches()
+        steps = check_stops(base, res, ss, k, new, f"main-lm {name}")
+        summ = rec.summary()
+        hist = rec.metrics.summary()["histograms"]
+        dispatches = summ["metrics"]["counters"]["stop_scan_dispatches"]
+        check(dispatches == summ["spans"]["stop_scan"]["count"] == steps,
+              f"main-lm {name}: {dispatches} stop scans for {steps} steps")
+        # one 'b' group of 6-byte stops: one multipattern (k = 0) or approx
+        # (k = 1) launch a scan
+        want = {"multipattern": steps if k == 0 else 0, "approx": steps if k else 0}
+        got = {key: launches[key] for key in want}
+        check(got == want, f"main-lm {name}: launches {got} != {want}")
+        for key, v in got.items():
+            out["launches"][key] = out["launches"].get(key, 0) + v
+        runs[name] = {"stops": len(ss), "k": k, "steps": steps,
+                      "stopped_rows": sum(r.stopped_by is not None for r in res),
+                      "stopped_by_len": sorted({len(r.stopped_by) for r in res if r.stopped_by}),
+                      "prefill_ms": summ["spans"]["prefill"]["total_ms"],
+                      "decode_ms_per_step": hist["span/decode"]["p50"] * 1e3,
+                      "stop_scan_ms_per_step": hist["span/stop_scan"]["p50"] * 1e3,
+                      "stop_scan_ms_mean": summ["spans"]["stop_scan"]["total_ms"] / steps,
+                      "launches": launches}
+    sampled = [eng.generate(prompts, max_new_tokens=new, temperature=0.7, seed=seed + 3)
+               for _ in range(2)]
+    check([r.text for r in sampled[0]] == [r.text for r in sampled[1]], "main-lm: sampling repeats")
+    check([r.text for r in sampled[0]] != [r.text for r in base], "main-lm: sampling is greedy")
+    out.update(runs=runs, sampled_tokens=sum(len(r.text) for r in sampled[0]))
+
+    # where a decode step and a stop scan spend their time: decode_step on
+    # the prompts' prefill cache, 16 steps a pass; the stop scan of the
+    # first stops run's strings on random bytes
+    tf = port.tf
+    tok = np.stack([np.concatenate([[port.pipeline.BOS], np.frombuffer(p, np.uint8)])
+                    for p in prompts]).astype(np.int64)
+    tok = torch.from_numpy(tok).to(DEVICE)
+    logits, kc, vc = tf.prefill(params, cfg, tok)
+    kf, vf = tf.make_cache(cfg, B, max_len, device=DEVICE)
+    S = tok.shape[1]
+    kf[:, :, :S], vf[:, :, :S] = kc, vc
+    state = {"pos": S, "nxt": logits.argmax(-1)[:, None]}
+
+    def decode():
+        if state["pos"] == max_len:  # rewind: the cache past S is rewritten
+            state["pos"] = S
+        lg, _, _ = tf.decode_step(params, cfg, state["nxt"], state["pos"], kf, vf)
+        state["nxt"] = lg.argmax(-1)[:, None]
+        state["pos"] += 1
+
+    sc = port.serve_engine.StopScanner(stops, B, new, device=DEVICE)
+    rand = np.random.RandomState(seed).randint(0, 256, size=(4096, B)).astype(np.int32)
+    step = iter(range(4096))
+
+    def scan():
+        i = next(step)
+        sc.scan(rand[i], i)
+
+    out["profile"] = {"decode_step": profile_units(torch, decode, 16),
+                      "stop_scan": profile_units(torch, scan, 16)}
+    del eng, params, kf, vf, kc, vc
+    torch.cuda.empty_cache()
+    return emit(out)
+
+
+# ---- main-pipeline ----------------------------------------------------------
+
+PIPE_LENGTHS = tuple(range(4, 33))
+PIPE_LIVE = 8  # patterns kept verbatim, and patterns with one byte changed
+
+
+def pipeline_blocklist(np, text, P: int, seed: int):
+    """P english patterns of m 4..32 drawn from `text`, evenly over the
+    lengths (141-142 a length at P = 4096, so every EPSMb and EPSMc group is
+    bucketed in the batch plans).  All but 2 x PIPE_LIVE of them get one
+    byte in each half changed to an uppercase letter, which the english text
+    never holds, so they hit nothing at k <= 1; PIPE_LIVE long ones (m >=
+    20) stay verbatim (hits at k = 0) and PIPE_LIVE get one such byte (hits
+    at k = 1 only)."""
+    rng = np.random.RandomState(seed)
+    n = len(PIPE_LENGTHS)
+    per = {m: P // n + (i < P % n) for i, m in enumerate(PIPE_LENGTHS)}
+    pats = []
+    for m, count in per.items():
+        for s in rng.randint(0, len(text) - m, size=count):
+            pats.append(bytearray(text[s : s + m].tobytes()))
+    long_ids = [i for i, p in enumerate(pats) if len(p) >= 20]
+    live = rng.choice(long_ids, size=2 * PIPE_LIVE, replace=False)
+    verbatim, one_typo = set(live[:PIPE_LIVE].tolist()), set(live[PIPE_LIVE:].tolist())
+    for i, p in enumerate(pats):
+        if i in verbatim:
+            continue
+        m = len(p)
+        p[rng.randint(0, m // 2)] = ord("A") + rng.randint(26)
+        if i not in one_typo:
+            p[rng.randint(m // 2, m)] = ord("A") + rng.randint(26)
+    return [bytes(p) for p in pats], sorted(verbatim), sorted(one_typo)
+
+
+def pipeline_documents(np, corpus, seed: int, total: int, n_big: int, n_dups: int, plants,
+                       max_len: int = 65536):
+    """About `total` bytes of english cut into documents of 512 B - max_len
+    (log-uniform seeded lengths), `n_big` of 1-4 MiB among them (> the
+    pipeline's MAX_FILTER_LEN; two in the first fifth of the documents),
+    each holding one of `plants` half a MiB or more in, and `n_dups`
+    near-duplicates (a copy of an earlier document with three bytes changed)
+    right after their originals.  The text is 16 MiB of corpus.english
+    (four seeds) tiled."""
+    base = np.concatenate([corpus.english(4 * MIB, seed + i) for i in range(4)])
+    text = np.tile(base, -(-(total + 10 * 4 * MIB) // len(base)))
+    rng = np.random.RandomState(seed)
+    docs, o = [], 0
+    while o < total:
+        L = int(np.exp(rng.uniform(np.log(512), np.log(max_len))))
+        docs.append(text[o : o + L])
+        o += L
+    spots = np.concatenate([rng.randint(0, len(docs) // 5, size=min(n_big, 2)),
+                            rng.randint(0, len(docs), size=max(n_big - 2, 0))])
+    for j, at in enumerate(sorted(spots)[::-1]):
+        L = int(rng.randint(MIB, 4 * MIB + 1))
+        big = text[o : o + L].copy()
+        o += L
+        p = np.frombuffer(plants[j % len(plants)], np.uint8)
+        at_byte = int(rng.randint(MIB // 2, L - len(p)))
+        big[at_byte : at_byte + len(p)] = p
+        docs.insert(int(at), big)
+    for at in sorted(rng.randint(0, len(docs), size=n_dups))[::-1]:
+        dup = docs[at].copy()
+        dup[rng.randint(0, len(dup), size=3)] ^= 1
+        docs.insert(int(at) + 1, dup)
+    return docs
+
+
+def oracle_blocked(np, docs, pats, k: int) -> np.ndarray:
+    """Independent host verdicts: document i is blocked iff some pattern
+    occurs in it within k mismatches.  k = 0: Python `in` per pattern and
+    document; k = 1: a numpy Hamming slide of each pattern over the
+    documents joined (the first min(m, 4) bytes, then the whole pattern at
+    the windows that pass), windows inside one document only.  A pattern
+    holding more than k bytes that occur in no document cannot occur and is
+    skipped."""
+    present = np.zeros(256, bool)
+    for d in docs:
+        present |= np.bincount(d, minlength=256) > 0
+    live = [p for p in pats if int((~present[np.frombuffer(p, np.uint8)]).sum()) <= k]
+    blocked = np.zeros(len(docs), bool)
+    if k == 0:
+        for i, d in enumerate(docs):
+            b = d.tobytes()
+            blocked[i] = any(p in b for p in live)
+        return blocked
+    joined = np.concatenate(docs)
+    starts = np.cumsum([0] + [len(d) for d in docs])
+    for p in live:
+        pa = np.frombuffer(p, np.uint8)
+        m = len(pa)
+        N = len(joined) - m + 1
+        if N <= 0:
+            continue
+        head = np.zeros(N, np.uint8)
+        for j in range(min(m, 4)):
+            head += joined[j : j + N] != pa[j]
+        cand = np.flatnonzero(head <= k)
+        mism = np.zeros(len(cand), np.int64)
+        for j in range(m):
+            mism += joined[cand + j] != pa[j]
+        pos = cand[mism <= k]
+        doc = np.searchsorted(starts, pos, side="right") - 1
+        inside = pos + m <= starts[doc + 1]
+        blocked[doc[inside]] = True
+    return blocked
+
+
+def oracle_duplicates(np, docs, kbits: int) -> np.ndarray:
+    """Independent host dedup of `docs`, in order.  A document's signature
+    is the set of kbits-bit hashes of its aligned 8-byte blocks, each block
+    dotted with fixed odd weights (drawn here again from their seed, 12345,
+    as the pipeline's `fingerprint_weights(8)`) in uint64; a document is a
+    duplicate when it shares more than 0.9 of its signature with one kept
+    before it, of the last 4096 kept (cut to the last 2048 past that); an
+    empty signature is never a duplicate and is not kept."""
+    rs = np.random.RandomState(12345)
+    w = ((rs.randint(1, 2**31 - 1, size=8).astype(np.int64) * 2 + 1) & 0x7FFFFFFF).astype(np.uint64)
+    mask = np.uint64((1 << kbits) - 1)
+    seen, dup = [], np.zeros(len(docs), bool)
+    for i, d in enumerate(docs):
+        n = len(d) // 8 * 8
+        sig = set(((d[:n].reshape(-1, 8).astype(np.uint64) @ w) & mask).tolist())
+        if not sig:
+            continue
+        if any(len(sig & s) / len(sig) > 0.9 for s in seen):
+            dup[i] = True
+            continue
+        seen.append(sig)
+        if len(seen) > 4096:
+            seen = seen[-2048:]
+    return dup
+
+
+def repack(np, port: Port, docs, blocked, dedup: bool, seq: int, batch: int):
+    """The host's packing of the kept documents, deduplicated by
+    oracle_duplicates: (stats, flat tokens of the whole batches)."""
+    pl = port.pipeline
+    kept = [d for d, b in zip(docs, blocked) if not b]
+    dup = oracle_duplicates(np, kept, port.epsm.EPSMC_KBITS) if dedup else np.zeros(len(kept), bool)
+    out = [d for d, x in zip(kept, dup) if not x]
+    stats = pl.PipelineStats(docs_in=len(docs), docs_blocked=int(blocked.sum()),
+                             docs_deduped=len(kept) - len(out), docs_out=len(out))
+    flat = np.concatenate([np.concatenate([[pl.BOS], d.astype(np.int32)]) for d in out])
+    need = batch * (seq + 1)
+    return stats, flat[: len(flat) // need * need].reshape(-1, batch, seq + 1)
+
+
+class RouteSpies:
+    """Counts the engine routes a blocklist dispatch takes while installed."""
+
+    ROUTES = (("engine", "_automaton_counts", "automaton"),
+              ("engine", "_b_count_rows_csr", "b_sparse_csr"),
+              ("engine", "_count_b_slot_dense", "b_slot_dense"),
+              ("engine", "_dense_count", "dense"),
+              ("engine", "_c_verify_csr", "c_csr"),
+              ("engine", "_c_verify", "c_flat"),
+              ("counting", "_approx_verify_counts", "approx_sparse"),
+              ("counting", "_dense_count_approx", "approx_dense"))
+
+    def __init__(self, port: Port):
+        self.mods = {"engine": port.engine, "counting": port.counting}
+        self.calls = {label: 0 for _, _, label in self.ROUTES}
+        self.orig = {}
+
+    def __enter__(self):
+        for mod, name, label in self.ROUTES:
+            fn = getattr(self.mods[mod], name)
+            self.orig[mod, name] = fn
+
+            def spy(*a, _fn=fn, _label=label, **kw):
+                self.calls[_label] += 1
+                return _fn(*a, **kw)
+
+            setattr(self.mods[mod], name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.orig.items():
+            setattr(self.mods[mod], name, fn)
+        return False
+
+
+def run_pipeline(torch, np, port: Port, docs, pats, k: int, dedup: bool, seq: int, batch: int):
+    """One LMDataPipeline pass on the card; returns its batches, stats, the
+    verdict of every document as the filter gave it, the routes of every
+    filter dispatch, launches and times."""
+    pl = port.pipeline
+    t0 = time.perf_counter()
+    pipe = pl.LMDataPipeline(iter(docs), seq_len=seq, batch_size=batch, blocklist=pats,
+                             dedup=dedup, blocklist_k=k, device=DEVICE)
+    compile_s = time.perf_counter() - t0
+    ps = pipe.pattern_set
+    calls = []
+    spies = RouteSpies(port)
+    orig_blocked, orig_stream = ps.blocked, ps.contains_any_stream
+
+    def blocked(mat, lengths):
+        before = dict(spies.calls)
+        v = orig_blocked(mat, lengths)
+        route = "+".join(r for r in spies.calls if spies.calls[r] > before[r]) or "none"
+        calls.append(("batch", v.cpu().numpy(), route))
+        return v
+
+    def stream(d, chunk_bytes):
+        hit = orig_stream(d, chunk_bytes=chunk_bytes)
+        calls.append(("stream", hit, "stream"))
+        return hit
+
+    ps.blocked, ps.contains_any_stream = blocked, stream
+    torch.cuda.synchronize()
+    port.reset_launches()
+    with spies:
+        t0 = time.perf_counter()
+        batches = list(pipe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = port.launches()
+    # one megascan launch a window of the oversize documents' stream scans
+    stream_windows = sum(sc.dispatch_count for sc in ps._scanners.values())
+    check(launches["megascan"] == stream_windows,
+          f"main-pipeline: megascan {launches['megascan']} != {stream_windows} stream windows")
+    stream_groups = len(ps._stream_plans) if ps._stream_plans is not None else 0
+    # each document's verdict, in the order the pipeline filtered them
+    verdict, it = np.zeros(len(docs), bool), iter(calls)
+    for lo in range(0, len(docs), pl.FILTER_BATCH):
+        group = range(lo, min(lo + pl.FILTER_BATCH, len(docs)))
+        small = [i for i in group if len(docs[i]) <= pl.MAX_FILTER_LEN]
+        if small:
+            verdict[small] = next(it)[1][: len(small)]
+        for i in group:
+            if len(docs[i]) > pl.MAX_FILTER_LEN:
+                verdict[i] = next(it)[1]
+    check(next(it, None) is None, "main-pipeline: unmatched filter calls")
+    routes = {}
+    for _, _, r in calls:
+        routes[r] = routes.get(r, 0) + 1
+    return {"batches": batches, "stats": pipe.stats, "verdict": verdict, "routes": routes,
+            "route_calls": dict(spies.calls), "launches": launches, "wall_s": wall,
+            "compile_s": compile_s, "stream_windows": stream_windows,
+            "stream_groups": stream_groups}
+
+
+def main_pipeline(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """LMDataPipeline on the card with a blocklist of 4096 english patterns
+    of m 4..32: sizes["text"] of english in documents of 512 B - 64 KiB plus
+    8 of 1-4 MiB (megascan through contains_any_stream) and 64
+    near-duplicates; then the first sizes["k1_text"] of it at blocklist_k =
+    1; then, with dedup, sizes["dedup_text"] in documents of 512 B - 16 KiB
+    with 64 near-duplicates.  The first two runs leave dedup off: its 11-bit
+    block signatures saturate on documents past ~32 KiB (every later one
+    counts as a duplicate), and its host cost grows with documents x kept
+    signatures.  Every document's verdict equals an independent host oracle
+    (all documents); the stats and the packed batches equal the host's
+    re-packing of the kept documents, deduplicated by oracle_duplicates."""
+    pl, corpus = port.pipeline, port.corpus
+    pats, verbatim, one_typo = pipeline_blocklist(np, corpus.english(4 * MIB, seed + 7), 4096, seed)
+    # the oversize documents hold a verbatim pattern (a hit at k = 0) or a
+    # one-typo pattern with its uppercase letter made 'e' (a hit at k = 1:
+    # one mismatch left)
+    plants = []
+    for v, t in zip(verbatim, one_typo):
+        plants.append(pats[v])
+        plants.append(bytes(b if not 65 <= b <= 90 else ord("e") for b in pats[t]))
+    t0 = time.perf_counter()
+    docs = pipeline_documents(np, corpus, seed + 7, sizes["text"], 8, 64, plants)
+    setup_s = time.perf_counter() - t0
+    seq, batch = 2048, 8
+    out = {"phase": "main-pipeline", "patterns": len(pats), "setup_s": setup_s, "runs": {}}
+    k1_docs, total = [], 0
+    for d in docs:
+        if total >= sizes["k1_text"]:
+            break
+        k1_docs.append(d)
+        total += len(d)
+    dedup_docs = pipeline_documents(np, corpus, seed + 7, sizes["dedup_text"], 0, 64, plants,
+                                    max_len=16384)
+    for name, dd, k, dedup in (("k0", docs, 0, False), ("k1", k1_docs, 1, False),
+                               ("dedup", dedup_docs, 0, True)):
+        run = run_pipeline(torch, np, port, dd, pats, k, dedup, seq, batch)
+        t0 = time.perf_counter()
+        want = oracle_blocked(np, dd, pats, k)
+        oracle_s = time.perf_counter() - t0
+        bad = np.flatnonzero(run["verdict"] != want)
+        check(bad.size == 0, f"main-pipeline {name}: {bad.size} verdicts differ from the oracle "
+                             f"(first docs {bad[:5].tolist()})")
+        check(0 < want.sum() < len(dd), f"main-pipeline {name}: {int(want.sum())} of {len(dd)} blocked")
+        stats, flat = repack(np, port, dd, want, dedup, seq, batch)
+        check(run["stats"] == stats, f"main-pipeline {name}: stats {run['stats']} != {stats}")
+        if dedup:
+            check(0 < stats.docs_deduped <= 2 * 64,
+                  f"main-pipeline {name}: {stats.docs_deduped} deduplicated, 64 near-duplicates in")
+        got = np.stack([np.concatenate([b["tokens"], b["targets"][:, -1:]], axis=1)
+                        for b in run["batches"]]) if run["batches"] else flat[:0]
+        check(got.shape == flat.shape and np.array_equal(got, flat),
+              f"main-pipeline {name}: batches differ from the host re-packing")
+        check(all(np.array_equal(b["targets"][:, :-1], b["tokens"][:, 1:]) for b in run["batches"]),
+              f"main-pipeline {name}: targets are not the shifted tokens")
+        n_bytes = sum(len(d) for d in dd)
+        big = [d for d in dd if len(d) > pl.MAX_FILTER_LEN]
+        launches = run["launches"]
+        check(launches["megascan"] > 0 or not big, f"main-pipeline {name}: megascan never launched")
+        # one approx launch a dense k-mismatch count, one acscan counts-mode
+        # launch an automaton route
+        calls = run["route_calls"]
+        check(launches["approx"] == calls["approx_dense"],
+              f"main-pipeline {name}: approx {launches['approx']} != {calls['approx_dense']} routes")
+        check(launches["acscan_counts"] == calls["automaton"],
+              f"main-pipeline {name}: acscan {launches['acscan_counts']} != {calls['automaton']} routes")
+        out["runs"][name] = {
+            "k": k, "dedup": dedup, "docs": len(dd), "bytes": n_bytes, "oversize_docs": len(big),
+            "stats": dataclasses.asdict(run["stats"]), "batches": len(run["batches"]),
+            "wall_s": run["wall_s"], "compile_s": run["compile_s"], "oracle_s": oracle_s,
+            "docs_per_s": len(dd) / run["wall_s"], "source_GB_per_s": n_bytes / run["wall_s"] / 1e9,
+            "routes": run["routes"], "route_calls": run["route_calls"],
+            "stream_windows": run["stream_windows"], "stream_groups": run["stream_groups"],
+            "launches": {key: launches[key] for key in ("acscan", "acscan_counts", "megascan",
+                                                         "approx", "multipattern")}}
+    # where a filter dispatch spends its time: PatternSet.blocked on 32
+    # documents at a time, as the k = 0 run sends them
+    ps = port.mp.PatternSet(pats, device=DEVICE)
+    small = [d for d in docs if len(d) <= pl.MAX_FILTER_LEN]
+    groups = [small[lo : lo + pl.FILTER_BATCH] for lo in range(0, len(small), pl.FILTER_BATCH)]
+    calls = iter(range(1 << 30))
+
+    def dispatch():
+        group = groups[next(calls) % len(groups)]
+        mat = np.zeros((pl.FILTER_BATCH, pl._bucket_len(max(len(d) for d in group))), np.uint8)
+        lengths = np.zeros((pl.FILTER_BATCH,), np.int32)
+        for row, d in enumerate(group):
+            mat[row, : len(d)] = d
+            lengths[row] = len(d)
+        ps.blocked(mat, lengths).cpu()
+
+    out["profile"] = {"filter_dispatch": profile_units(torch, dispatch, 8)}
+    emit(out)
+    total_launches = {}
+    for r in out["runs"].values():
+        for key, v in r["launches"].items():
+            total_launches[key] = total_launches.get(key, 0) + v
+    return {"launches": total_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2520,6 +3236,26 @@ def main() -> int:
     # for the 'b' groups of a positions window, EPSM 8 a distributed count
     for name, v in sharded["launches"].items():
         launches["acscan" if name == "acscan_counts" else name] += v
+    t0 = time.perf_counter()
+    compared_lm = compare_lm(torch, np, port, args.seed, {"steps": 8, "moe_layers": 2})
+    emit({"phase": "compare-lm", **compared_lm, "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    lm = main_lm(torch, np, port, args.seed,
+                 {"batch": 8, "prompt": 512, "new_tokens": 256, "max_len": 1024})
+    emit({"phase": "main-lm", "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    piped = main_pipeline(torch, np, port, args.seed,
+                          {"text": 256 * MIB, "k1_text": 64 * MIB, "dedup_text": 4 * MIB})
+    emit({"phase": "main-pipeline", "launches": piped["launches"],
+          "seconds": round(time.perf_counter() - t0, 3)})
+    # the stop scan's multipattern ('b' stops) and approx (fuzzy stops)
+    # launches; the pipeline's megascan (oversize documents), approx (dense
+    # k-mismatch counts) and acscan (automaton routes)
+    for name, v in lm["launches"].items():
+        launches[name] += v
+    for name, v in piped["launches"].items():
+        if name != "acscan":
+            launches["acscan" if name == "acscan_counts" else name] += v
     rows = timing(torch, port, args.seed, GIB)
     rows["multipattern"] = timing_multipattern(torch, port, args.seed, 8, 8 * MIB, 32)
     rows.update(timing_stream_approx(torch, np, port, args.seed, 64 * MIB,

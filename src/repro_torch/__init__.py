@@ -9,5 +9,12 @@ multi-pattern CUDA kernel on the full-mask EPSMb route), ``approx``
 ``core.stream`` (bounded-memory streaming, with the fused megascan CUDA
 kernel), ``core.automaton`` (the engine's dictionary-scale Aho-Corasick
 route, with the acscan CUDA kernel), ``serve`` (the coalescing query plane
-and its JSON-lines server), ``obs`` and ``data.corpus``.
+and its JSON-lines server), ``obs`` and ``data.corpus``; ``core.remote_source``,
+``core.shard_stream``, ``core.distributed``, ``dist`` and ``launch.mesh``
+(sharded, fault-tolerant streaming); and the byte-level LM serving path:
+``models`` (common blocks, attention with the int8 KV cache, MoE, the
+transformer's prefill and decode steps, ``convert`` from the reference's
+parameters), ``configs`` (the five LM architectures), ``data.pipeline``
+(blocklist filter and dedup), ``serve.engine`` (``StopScanner``,
+``ServeEngine``) and ``launch.serve``.
 """

@@ -107,6 +107,7 @@ class PatternSet:
         # group-major order of the original patterns
         self.groups = {p.m: p.patterns for p in self.plans}
         self._scanners: dict = {}  # chunk_bytes -> StreamScanner (reusable)
+        self._stream_plans = None  # the plans megascan takes, built at first stream
 
     def index(self, text_or_batch, lengths=None) -> engine.TextIndex:
         return engine.build_index(text_or_batch, lengths, device=self.device)
@@ -131,11 +132,26 @@ class PatternSet:
     def contains_any_stream(self, source, *, chunk_bytes: int = 1 << 22) -> bool:
         """Bounded-memory verdict for one oversize document or byte stream:
         O(chunk_bytes) device memory regardless of its length, with early
-        exit on a hit.  The scanner is cached per chunk size."""
+        exit on a hit.  The scanner is cached per chunk size.
+
+        The scanner counts with the megascan kernel on the card, over the
+        set recompiled as plans it takes (``megascan_plans``: flat groups
+        of at most 512 patterns); a set it still cannot take (a pattern
+        over 4093 bytes, k > 127, more counters than shared memory holds)
+        raises there rather than scan in plain PyTorch."""
         sc = self._scanners.get(chunk_bytes)
         if sc is None:
             from repro_torch.core.stream import StreamScanner
+            from repro_torch.kernels.megascan.ops import megascan_plans
 
-            sc = StreamScanner(self.plans, chunk_bytes, k=self.k)
+            if self._stream_plans is None:
+                self._stream_plans = megascan_plans(self.plans)
+            sc = StreamScanner(self._stream_plans, chunk_bytes, k=self.k)
+            if sc.device.type == "cuda" and sc.spec is None:
+                raise ValueError(
+                    "contains_any_stream: the megascan kernel cannot take this pattern set "
+                    "(a pattern over 4093 bytes, k > 127, or more patterns than its shared "
+                    "memory counts)"
+                )
             self._scanners[chunk_bytes] = sc
         return sc.contains_any(source)

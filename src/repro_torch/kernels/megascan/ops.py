@@ -16,7 +16,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.engine import PatternPlan, _effective_k
+from repro_torch.core.engine import PatternPlan, _effective_k, compile_patterns
 from repro_torch.core.epsm import EPSMC_BETA, _epsmc_stride
 from repro_torch.core.packing import PACK
 from repro_torch.kernels import _build
@@ -127,6 +127,28 @@ def build_mega_spec(plans: Sequence[PatternPlan], *, k: Optional[int] = None) ->
         return None
     return MegaSpec(groups=tuple(groups), p_total=col, tile=TILE, beta=beta, smem_bytes=smem,
                     k=k, halo_back=back, halo_fwd=fwd)
+
+
+def megascan_plans(plans: Sequence[PatternPlan]) -> Tuple[PatternPlan, ...]:
+    """The same patterns as a plan set ``build_mega_spec`` can take: each
+    length group compiled again flat (no CSR buckets, no automaton) at the
+    budget it was compiled for, in slices of at most MEGA_P_MAX patterns.
+    Each slice keeps the original indices in ``ids``, so ``plan_order``
+    still maps rows back.  Plans that are flat and small already are kept
+    as they are."""
+    out = []
+    for plan in plans:
+        flat = plan.bbits == 0 and plan.automaton is None and (
+            plan.regime != "c" or plan.lut_bits is not None)
+        if flat and plan.n_patterns <= MEGA_P_MAX:
+            out.append(plan)
+            continue
+        rows = plan.patterns.cpu().numpy()
+        for lo in range(0, len(rows), MEGA_P_MAX):
+            (part,) = compile_patterns(list(rows[lo : lo + MEGA_P_MAX]), k=plan.k, bucket=False,
+                                       automaton=False, device=plan.device)
+            out.append(dataclasses.replace(part, ids=plan.ids[lo : lo + MEGA_P_MAX]))
+    return tuple(out)
 
 
 def megascan_count_window(

@@ -42,7 +42,13 @@ def test_import_leaves_jax_out():
         "repro_torch.kernels.acscan.ops, repro_torch.serve.query_plane, repro_torch.serve.server, "
         "repro_torch.dist, repro_torch.dist.fault_tolerance, repro_torch.dist.fault_injection, "
         "repro_torch.dist.sharding, repro_torch.dist.compat, repro_torch.launch.mesh, "
-        "repro_torch.core.remote_source, repro_torch.core.shard_stream, repro_torch.core.distributed; "
+        "repro_torch.core.remote_source, repro_torch.core.shard_stream, repro_torch.core.distributed, "
+        "repro_torch.models.common, repro_torch.models.attention, repro_torch.models.moe, "
+        "repro_torch.models.transformer, repro_torch.models.convert, repro_torch.configs, "
+        "repro_torch.configs.shapes, repro_torch.configs.registry, repro_torch.configs.smollm_135m, "
+        "repro_torch.configs.yi_9b, repro_torch.configs.minitron_4b, "
+        "repro_torch.configs.phi3_5_moe_42b_a6_6b, repro_torch.configs.grok_1_314b, "
+        "repro_torch.data.pipeline, repro_torch.serve.engine, repro_torch.launch.serve; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "assert not bad, bad"
     )
@@ -57,3 +63,26 @@ def test_no_gpu_means_no_silent_cpu_run(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         epsm.find(b"ab", b"b")
     assert epsm.find(b"ab", b"b", device="cpu").tolist() == [False, True]
+
+
+def test_serving_and_pipeline_entry_points_need_the_card_or_cpu(monkeypatch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import LMDataPipeline
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine, StopScanner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config("smollm-135m")
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    for make in (
+        lambda **kw: StopScanner([b"ab"], 1, 4, **kw),
+        lambda **kw: ServeEngine(params, cfg, **kw),
+        lambda **kw: LMDataPipeline([], seq_len=8, batch_size=1, blocklist=[b"abcd"], **kw),
+        lambda **kw: tf.init_params(torch.Generator().manual_seed(0), cfg, **kw),
+        lambda **kw: tf.make_cache(cfg, 1, 8, **kw),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        make(device="cpu")
+    eng = ServeEngine(params, cfg, max_len=16, device="cpu")
+    assert len(eng.generate([b"ab"], max_new_tokens=2)) == 1

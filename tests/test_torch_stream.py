@@ -369,6 +369,46 @@ def test_patternset_contains_any_stream(rng):
     assert len(drained) < len(range(0, len(early), 512))
 
 
+@pytest.mark.parametrize("k", [0, 1])
+def test_patternset_stream_plans_take_megascan(rng, k):
+    """A dictionary-scale set (bucketed EPSMb and EPSMc groups, one group
+    over MEGA_P_MAX) streams over plans megascan takes: flat groups of at
+    most MEGA_P_MAX patterns whose ids map rows back to the input.  The
+    verdicts equal the reference's, and megascan's plain version counts
+    each pattern as the engine's own plans do."""
+    from repro_torch.kernels.megascan.ops import MEGA_P_MAX, build_mega_spec
+
+    pats = [rng.randint(0, 256, size=m).astype(np.uint8).tobytes()
+            for m, n in ((6, MEGA_P_MAX + 40), (10, 130), (20, 130)) for _ in range(n)]
+    clean = make_text(rng, 12_000, 4)
+    docs = [clean]
+    for i in (7, MEGA_P_MAX + 3, MEGA_P_MAX + 60, MEGA_P_MAX + 200):
+        doc = clean.copy()
+        doc[5_000 : 5_000 + len(pats[i])] = np.frombuffer(pats[i], np.uint8)
+        if k:
+            doc[5_001] ^= 1
+        docs.append(doc)
+    got = Pmp.PatternSet(pats, k=k, device=CPU)
+    assert build_mega_spec(got.plans, k=k) is None
+    want = Rmp.PatternSet(pats, k=k)
+    verdicts = [got.contains_any_stream(doc, chunk_bytes=2048) for doc in docs]
+    assert verdicts == [want.contains_any_stream(doc, chunk_bytes=2048) for doc in docs]
+    assert verdicts == [False, True, True, True, True]
+    plans = got._stream_plans
+    assert build_mega_spec(plans, k=k) is not None
+    assert max(p.n_patterns for p in plans) <= MEGA_P_MAX and len(plans) == 4
+    for plan in plans:
+        want_rows = np.stack([np.frombuffer(pats[i], np.uint8) for i in plan.ids])
+        np.testing.assert_array_equal(plan.patterns.numpy(), want_rows)
+    order, ref_order = E.plan_order(plans), E.plan_order(got.plans)
+    for doc in docs[:2]:
+        mega = StreamScanner(plans, 2048, k=k, use_kernel=True).count_many(doc)
+        plain = StreamScanner(got.plans, 2048, k=k, use_kernel=False).count_many(doc)
+        by_pattern = np.zeros(len(pats), np.int64)
+        by_pattern[order] = mega
+        np.testing.assert_array_equal(by_pattern[ref_order], plain)
+
+
 class _StubWatchdog:
     """Flags the step whose host work took longer than ``limit_s``."""
 

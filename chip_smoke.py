@@ -107,7 +107,7 @@ Phases, one JSON line each (more for main-multi and main-stream):
   compare-lm    the LM serving path on the card against its own run on the CPU
                 (float32, TF32 off, parameters from one seeded init): full
                 smollm-135m (byte vocab 257) and phi3.5-moe at full width
-                cut to 2 layers (16 experts, top-2, tokens dropped past
+                cut to 1 layer (16 experts, top-2, tokens dropped past
                 capacity at layer 0 on both sides, the dispatch equal), 4
                 prompts of 128 bytes: prefill logits and caches, 8
                 decode_steps and 8 decode_step_q8s (each side from its own
@@ -124,14 +124,40 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 decode and stop-scan ms (fenced spans), tokens/s, peak
                 memory;
   main-pipeline LMDataPipeline on the card with 4096 english blocklist
-                patterns of m 4..32 (141-142 a length): 256 MiB of english in
+                patterns of m 4..32 (141-142 a length): 128 MiB of english in
                 documents of 512 B - 64 KiB plus 8 of 1-4 MiB (one megascan
                 launch a window of contains_any_stream, over the set
-                recompiled flat) and 64 near-duplicates, then 64 MiB at
+                recompiled flat) and 64 near-duplicates, then 32 MiB at
                 blocklist_k = 1, then 4 MiB of 512 B - 16 KiB documents with
                 64 near-duplicates and dedup; every verdict equal to a host
                 oracle, stats and batches equal to a host re-packing with an
                 independent dedup, routes and launches;
+  compare-train the LM training path on the card against its own run on the
+                CPU (float32, TF32 off, parameters from one seeded init):
+                full smollm-135m (byte vocab 257) and phi3.5-moe at full
+                width cut to 1 layer (1.56 B parameters; one row of one
+                repeated byte, so tokens drop past capacity on both sides,
+                the dispatch equal), B = 2, S = 128: train_loss and every
+                gradient leaf with remat on and off, one AdamW update from
+                the CPU's gradients, a 3-step make_train_step loss
+                trajectory, each within TRAIN_TOL or ADAM_TOL of the CPU's;
+                smollm's grad_accum = 2 against 1 on the card (the
+                gradients adamw_update gets, and the loss);
+  main-train    train.loop.train at full smollm-135m width in bfloat16, B = 8,
+                S = 1024, 60 steps of AdamW over LMDataPipeline on the card
+                (a 64-pattern english blocklist at blocklist_k = 1; two
+                planted 1-4 MiB documents through megascan): async
+                checkpoints every 20 steps, a fault injected at step 45, a
+                second run resuming from step 40 (the restored state
+                bit-equal to a copy held at step 40; 20 steps; step 60
+                published, no .tmp_* left); verdicts equal to the host
+                oracle, approx launches = filter dispatches x length groups,
+                megascan launches = stream windows; tokens/s, a fenced
+                step, a torch.profiler breakdown of 3 steps, peak memory
+                with remat on and off, checkpoint save and restore times;
+                then launch.train --reduced (30 steps, checkpoints every 10)
+                and launch.serve --ckpt-dir restoring its step 30, the
+                served parameters equal to the checkpoint's;
   timing       median kernel times (CUDA events, queued behind a device sleep
                 so they exclude the wrapper's host time) beside the plain
                 versions' times and the bounds, and the times of epsm.find and
@@ -156,11 +182,14 @@ nonzero when no CUDA device is available or the port's package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import gzip
+import io
 import json
 import logging
+import shutil
 import statistics
 import subprocess
 import sys
@@ -262,6 +291,11 @@ class Port:
         from repro_torch.models import moe as lm_moe
         from repro_torch.models import transformer as tf
         from repro_torch.serve import engine as serve_engine
+        from repro_torch.launch import serve as launch_serve
+        from repro_torch.launch import train as launch_train
+        from repro_torch.train import checkpoint as train_ckpt
+        from repro_torch.train import loop as train_loop
+        from repro_torch.train import optimizer as train_opt
 
         self.epsm, self.corpus, self.build = epsm, corpus, _build
         self.engine, self.mp, self.mp_ops = engine, multipattern, mp_ops
@@ -279,6 +313,8 @@ class Port:
         self.sharding = sharding
         self.configs, self.pipeline, self.serve_engine = configs, pipeline, serve_engine
         self.tf, self.lm_moe, self.lm_common = tf, lm_moe, lm_common
+        self.ckpt, self.loop, self.opt = train_ckpt, train_loop, train_opt
+        self.launch_train, self.launch_serve = launch_train, launch_serve
         self.wrappers = {"epsma": epsma_cuda, "epsmb": epsmb_cuda, "epsmc": epsmc_cuda,
                          "multipattern": multipattern_cuda, "megascan": megascan_cuda,
                          "approx": approx_cuda, "acscan": acscan_cuda,
@@ -2595,7 +2631,7 @@ def compare_lm(torch, np, port: Port, seed: int, sizes: dict) -> dict:
                           lm_config(port, "smollm-135m", vocab=port.pipeline.VOCAB,
                                     dtype="float32", param_dtype="float32"),
                           tokens, sizes["steps"], seed),
-           lm_compare_one(torch, np, port, f"phi3.5-moe-42b-a6.6b, {sizes['moe_layers']} layers",
+           lm_compare_one(torch, np, port, f"phi3.5-moe-42b-a6.6b, {sizes['moe_layers']} layer(s)",
                           lm_config(port, "phi3.5-moe-42b-a6.6b", n_layers=sizes["moe_layers"],
                                     dtype="float32", param_dtype="float32"),
                           moe_tokens, sizes["steps"], seed + 1)]
@@ -2978,18 +3014,10 @@ class RouteSpies:
         return False
 
 
-def run_pipeline(torch, np, port: Port, docs, pats, k: int, dedup: bool, seq: int, batch: int):
-    """One LMDataPipeline pass on the card; returns its batches, stats, the
-    verdict of every document as the filter gave it, the routes of every
-    filter dispatch, launches and times."""
-    pl = port.pipeline
-    t0 = time.perf_counter()
-    pipe = pl.LMDataPipeline(iter(docs), seq_len=seq, batch_size=batch, blocklist=pats,
-                             dedup=dedup, blocklist_k=k, device=DEVICE)
-    compile_s = time.perf_counter() - t0
-    ps = pipe.pattern_set
+def record_filter_calls(ps, spies: RouteSpies) -> list:
+    """Wraps a pipeline's PatternSet so that each filter call appends
+    (kind, verdict, routes the spies saw) to the list returned."""
     calls = []
-    spies = RouteSpies(port)
     orig_blocked, orig_stream = ps.blocked, ps.contains_any_stream
 
     def blocked(mat, lengths):
@@ -3005,6 +3033,39 @@ def run_pipeline(torch, np, port: Port, docs, pats, k: int, dedup: bool, seq: in
         return hit
 
     ps.blocked, ps.contains_any_stream = blocked, stream
+    return calls
+
+
+def filter_verdicts(np, pl, docs, calls, what: str) -> np.ndarray:
+    """Each document's verdict from the filter calls a pipeline made over
+    `docs`, in its order: FILTER_BATCH documents a group, one batch call for
+    the group's documents up to MAX_FILTER_LEN, one stream call for each
+    larger one."""
+    verdict, it = np.zeros(len(docs), bool), iter(calls)
+    for lo in range(0, len(docs), pl.FILTER_BATCH):
+        group = range(lo, min(lo + pl.FILTER_BATCH, len(docs)))
+        small = [i for i in group if len(docs[i]) <= pl.MAX_FILTER_LEN]
+        if small:
+            verdict[small] = next(it)[1][: len(small)]
+        for i in group:
+            if len(docs[i]) > pl.MAX_FILTER_LEN:
+                verdict[i] = next(it)[1]
+    check(next(it, None) is None, f"{what}: unmatched filter calls")
+    return verdict
+
+
+def run_pipeline(torch, np, port: Port, docs, pats, k: int, dedup: bool, seq: int, batch: int):
+    """One LMDataPipeline pass on the card; returns its batches, stats, the
+    verdict of every document as the filter gave it, the routes of every
+    filter dispatch, launches and times."""
+    pl = port.pipeline
+    t0 = time.perf_counter()
+    pipe = pl.LMDataPipeline(iter(docs), seq_len=seq, batch_size=batch, blocklist=pats,
+                             dedup=dedup, blocklist_k=k, device=DEVICE)
+    compile_s = time.perf_counter() - t0
+    ps = pipe.pattern_set
+    spies = RouteSpies(port)
+    calls = record_filter_calls(ps, spies)
     torch.cuda.synchronize()
     port.reset_launches()
     with spies:
@@ -3018,17 +3079,7 @@ def run_pipeline(torch, np, port: Port, docs, pats, k: int, dedup: bool, seq: in
     check(launches["megascan"] == stream_windows,
           f"main-pipeline: megascan {launches['megascan']} != {stream_windows} stream windows")
     stream_groups = len(ps._stream_plans) if ps._stream_plans is not None else 0
-    # each document's verdict, in the order the pipeline filtered them
-    verdict, it = np.zeros(len(docs), bool), iter(calls)
-    for lo in range(0, len(docs), pl.FILTER_BATCH):
-        group = range(lo, min(lo + pl.FILTER_BATCH, len(docs)))
-        small = [i for i in group if len(docs[i]) <= pl.MAX_FILTER_LEN]
-        if small:
-            verdict[small] = next(it)[1][: len(small)]
-        for i in group:
-            if len(docs[i]) > pl.MAX_FILTER_LEN:
-                verdict[i] = next(it)[1]
-    check(next(it, None) is None, "main-pipeline: unmatched filter calls")
+    verdict = filter_verdicts(np, pl, docs, calls, "main-pipeline")
     routes = {}
     for _, _, r in calls:
         routes[r] = routes.get(r, 0) + 1
@@ -3138,6 +3189,395 @@ def main_pipeline(torch, np, port: Port, seed: int, sizes: dict) -> dict:
     return {"launches": total_launches}
 
 
+# ---- compare-train / main-train -------------------------------------------
+
+# compare-train: max |card - CPU| / max |CPU| of the loss and of each
+# gradient leaf (float32, TF32 off: only the order of the float32 sums and
+# the exp / log / rsqrt implementations differ, over 30 layers forward and
+# back), and of each parameter and moment after one AdamW update from the
+# same gradients (a handful of element-wise float32 ops and one global-norm
+# sum)
+TRAIN_TOL = 1e-4
+ADAM_TOL = 1e-5
+TRAIN_BATCH, TRAIN_SEQ = 2, 128
+
+
+def named_leaves(tree, prefix: str = ""):
+    """(dotted path, tensor) of a nest of dicts / lists / NamedTuples."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from named_leaves(v, f"{prefix}.{k}" if prefix else str(k))
+
+
+def tree_err(torch, got, want, what: str, tol: float) -> float:
+    """The largest max |got - want| / max |want| over the leaves (each
+    compared on the card), checked against tol."""
+    worst = 0.0
+    for (name, g), (wname, w) in zip(named_leaves(got), named_leaves(want)):
+        check(name == wname and g.shape == w.shape, f"{what}: trees differ at {name}")
+        if not w.numel():
+            continue
+        g, w = g.to(DEVICE).float(), w.to(DEVICE).float()
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        check(err <= tol, f"{what} {name}: max |card - cpu| / max |cpu| = {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def same_bits(torch, a, b, what: str) -> int:
+    """Checks two trees bit-equal, leaf by leaf; returns the leaf count."""
+    n = 0
+    for (name, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+        x, y = x.detach(), y.detach().to(x.device)
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        check(x.dtype == y.dtype and torch.equal(x, y), f"{what}: {name} differs")
+        n += 1
+    check(n > 0, f"{what}: no leaves")
+    return n
+
+
+def train_compare_one(torch, np, port: Port, label: str, cfg, batch, seed: int,
+                      traj_steps: int, accum: bool) -> dict:
+    """train_loss and every gradient leaf (remat on and off), one AdamW
+    update from the CPU's gradients and a traj_steps-step make_train_step
+    loss trajectory of one model on the card and on the CPU from the same
+    parameters (drawn on the card from `seed`, copied to the host); with
+    `accum`, grad_accum = 2 against 1 on the card."""
+    tf, loop, opt, tree_map = port.tf, port.loop, port.opt, port.lm_common.tree_map
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, device=DEVICE)
+    host = tree_map(lambda t: t.cpu(), params)
+    cb = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    hb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    B, S = batch["tokens"].shape
+    row = {"model": label, "params": port.lm_common.param_count(params), "batch": B, "seq": S}
+    errs, losses = {}, {}
+    grads = None
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        fn = lambda p, b, _c=c: tf.train_loss(p, _c, b)
+        tag = "remat_on" if remat else "remat_off"
+        lc, gc = loop.value_and_grad(fn, params, cb)
+        lh, gh = loop.value_and_grad(fn, host, hb)
+        errs[f"loss_{tag}"] = held(torch, lc, lh, f"{label} loss ({tag})", TRAIN_TOL)
+        errs[f"grads_{tag}"] = tree_err(torch, gc, gh, f"{label} grad ({tag})", TRAIN_TOL)
+        losses[tag] = float(lh)
+        del gc
+        if grads is None:
+            grads = gh
+        del gh
+    if cfg.is_moe:
+        tok = cb["tokens"]
+        dc = moe_layer0_dispatch(torch, port, params, cfg, tok)
+        dh = moe_layer0_dispatch(torch, port, host, cfg, tok.cpu())
+        check(torch.equal(dc.cpu(), dh), f"{label}: layer-0 MoE dispatch differs")
+        dropped = cfg.moe_top_k * B * S - int(dh.sum())
+        check(dropped > 0, f"{label}: no token was dropped")
+        row["layer0_dropped_assignments"] = dropped
+    # one AdamW update, both sides from the CPU's gradients
+    ocfg = opt.AdamWConfig(peak_lr=3e-3, warmup_steps=2, total_steps=traj_steps)
+    g_card = tree_map(lambda t: t.to(DEVICE), grads)
+    pc, sc, mc = opt.adamw_update(g_card, opt.adamw_init(params), params, ocfg)
+    del g_card
+    ph, sh, mh = opt.adamw_update(grads, opt.adamw_init(host), host, ocfg)
+    del grads
+    check(float(mc["lr"]) == float(mh["lr"]), f"{label}: AdamW lr differs")
+    errs["adamw_grad_norm"] = held(torch, mc["grad_norm"], mh["grad_norm"],
+                                   f"{label} AdamW grad norm", ADAM_TOL)
+    errs["adamw_params"] = tree_err(torch, pc, ph, f"{label} AdamW params", ADAM_TOL)
+    errs["adamw_m"] = tree_err(torch, sc.m, sh.m, f"{label} AdamW m", ADAM_TOL)
+    errs["adamw_v"] = tree_err(torch, sc.v, sh.v, f"{label} AdamW v", ADAM_TOL)
+    del pc, sc, ph, sh
+    # the loss trajectory of traj_steps train steps on one batch
+    step_fn = loop.make_train_step(lambda p, b: tf.train_loss(p, cfg, b), ocfg)
+    traj = {}
+    for side, p, b in (("card", params, cb), ("cpu", host, hb)):
+        st, traj[side] = opt.adamw_init(p), []
+        for _ in range(traj_steps):
+            p, st, m = step_fn(p, st, b)
+            traj[side].append(float(m["loss"]))
+        del p, st, m
+    errs["trajectory"] = max(abs(a - b) / abs(b) for a, b in zip(traj["card"], traj["cpu"]))
+    check(errs["trajectory"] <= TRAIN_TOL,
+          f"{label}: loss trajectory {traj['card']} vs {traj['cpu']} > {TRAIN_TOL}")
+    del host
+    if accum:
+        # grad_accum = 2 against 1 on the card: the gradients each step hands
+        # to adamw_update (the mean of the microbatches' against the whole
+        # batch's) and the loss within TRAIN_TOL; the parameters after the
+        # step are a reading: AdamW's first step divides each gradient by its
+        # own magnitude plus eps = 1e-8, so a gradient near eps moves its
+        # parameter by a share of lr that its last bits decide
+        acfg = opt.AdamWConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+        fn = lambda p, b: tf.train_loss(p, cfg, b)
+        st = opt.adamw_init(params)
+        seen, real_update = [], loop.adamw_update
+
+        def spy_update(g, *a, **kw):
+            seen.append(g)
+            return real_update(g, *a, **kw)
+
+        loop.adamw_update = spy_update
+        try:
+            p1, _, m1 = loop.make_train_step(fn, acfg, grad_accum=1)(params, st, cb)
+            p2, _, m2 = loop.make_train_step(fn, acfg, grad_accum=2)(params, st, cb)
+        finally:
+            loop.adamw_update = real_update
+        errs["grad_accum_grads"] = tree_err(torch, seen[1], seen[0], f"{label} grad_accum 2 grads",
+                                            TRAIN_TOL)
+        errs["grad_accum_loss"] = held(torch, m2["loss"], m1["loss"], f"{label} grad_accum 2 loss",
+                                       TRAIN_TOL)
+        row["grad_accum_params_max_abs_diff"] = max(
+            float((a.float() - b.float()).abs().max())
+            for (_, a), (_, b) in zip(named_leaves(p1), named_leaves(p2)))
+        row["grad_accum_lr"] = float(m1["lr"])
+        del p1, p2, st, seen
+    del params
+    torch.cuda.empty_cache()
+    return {**row, "max_rel_err": errs, "loss": losses, "trajectory": traj,
+            "seconds": round(time.perf_counter() - t0, 3)}
+
+
+def compare_train(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """The training path on the card against its own run on the CPU in
+    float32 (TF32 off): full smollm-135m (byte vocab 257) and phi3.5-moe at
+    full width cut to sizes["moe_layers"] layer(s); B = 2 rows of BOS + 128
+    bytes; the MoE's second row repeats one byte, so its tokens route alike
+    and drop past capacity on both sides."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pl = port.pipeline
+    english = port.corpus.english(MIB, seed + 5)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    rows = np.stack([english[i * 8192 : i * 8192 + S] for i in range(B)]).astype(np.int32)
+    seqs = np.concatenate([np.full((B, 1), pl.BOS, np.int32), rows], axis=1)
+    dense = {"tokens": seqs[:, :-1].copy(), "targets": seqs[:, 1:].copy()}
+    moe_seqs = seqs.copy()
+    moe_seqs[1, 1:] = ord("e")
+    moe = {"tokens": moe_seqs[:, :-1].copy(), "targets": moe_seqs[:, 1:].copy()}
+    f32 = dict(dtype="float32", param_dtype="float32")
+    out = [train_compare_one(torch, np, port, "smollm-135m",
+                             lm_config(port, "smollm-135m", vocab=pl.VOCAB, **f32),
+                             dense, seed, sizes["steps"], accum=True),
+           train_compare_one(torch, np, port, f"phi3.5-moe-42b-a6.6b, {sizes['moe_layers']} layer",
+                             lm_config(port, "phi3.5-moe-42b-a6.6b", n_layers=sizes["moe_layers"],
+                                       **f32),
+                             moe, seed + 1, sizes["steps"], accum=False)]
+    return {"models": out, "tolerance": TRAIN_TOL, "tolerance_adamw": ADAM_TOL}
+
+
+def loss_at(logs, step: int) -> float:
+    """The loss train() logged at `step`."""
+    for line in logs:
+        if line.startswith(f"step {step}: loss="):
+            return float(line.split("loss=")[1].split()[0])
+    raise RuntimeError(f"chip_smoke check failed: main-train logged no loss at step {step}")
+
+
+def main_train(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """train.loop.train at full smollm-135m width in bfloat16 (its own
+    dtype), B x S tokens a step, AdamW (peak 3e-3, warmup 20), over
+    LMDataPipeline on the card with a 64-pattern english blocklist at
+    blocklist_k = 1 (documents of 512 B - 64 KiB and two planted ones of
+    1-4 MiB, which stream through megascan): async checkpoints every
+    sizes["ckpt_every"] steps, a fault injected at sizes["fault_at"], then a
+    second train resuming from the last checkpoint.  Verdicts against the
+    host oracle, approx launches = filter dispatches x length groups,
+    megascan launches = stream windows, the restored state bit-equal to a
+    copy held at that step.  Then the step's time, profile and peak memory
+    (remat on and off), checkpoint save / restore times, and the entry
+    points: launch.train --reduced with checkpoints, then launch.serve
+    --ckpt-dir restoring its last one."""
+    tf, loop, opt, ck, pl = port.tf, port.loop, port.opt, port.ckpt, port.pipeline
+    tree_map = port.lm_common.tree_map
+    B, S, steps = sizes["batch"], sizes["seq"], sizes["steps"]
+    every, fault_at = sizes["ckpt_every"], sizes["fault_at"]
+    resume_at = fault_at // every * every
+    cfg = lm_config(port, "smollm-135m", vocab=pl.VOCAB, ce_chunk=512)
+    work = ROOT / "build" / "train_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    ckdir = work / "ckpt"
+    text = port.corpus.english(4 * MIB, seed + 11)
+    pats, verbatim, one_typo = pipeline_blocklist(np, text, 64, seed)
+    plants = []
+    for v, t in zip(verbatim, one_typo):
+        plants.append(pats[v])
+        plants.append(bytes(b if not 65 <= b <= 90 else ord("e") for b in pats[t]))
+    docs = pipeline_documents(np, port.corpus, seed + 11, sizes["text"], 2, 0, plants)
+    check(sum(len(d) >= MIB for d in docs[: pl.FILTER_BATCH]) == 2,
+          "main-train: the oversize documents are not in the first filter group")
+
+    ocfg = opt.AdamWConfig(peak_lr=3e-3, warmup_steps=20, total_steps=steps)
+    tc = loop.TrainConfig(steps=steps, log_every=1, ckpt_every=every, ckpt_dir=str(ckdir),
+                          keep_ckpts=3, async_checkpoint=True, opt=ocfg)
+    loss_fn = lambda p, b: tf.train_loss(p, cfg, b)
+    params0 = tf.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, device=DEVICE)
+    held_copy = {}
+    real_save = ck.save
+
+    def spy_save(tree, directory, step, **kw):
+        if step == resume_at:
+            held_copy["state"] = tree_map(lambda t: t.detach().clone(), tree)
+        return real_save(tree, directory, step, **kw)
+
+    spies = RouteSpies(port)
+    pipes, calls, logs = [], [], []
+
+    def pipeline():
+        pipe = pl.LMDataPipeline(iter(docs), seq_len=S, batch_size=B, blocklist=pats,
+                                 blocklist_k=1, device=DEVICE)
+        pipes.append(pipe)
+        calls.append(record_filter_calls(pipe.pattern_set, spies))
+        return pipe
+
+    out = {"phase": "main-train", "model": "smollm-135m", "dtype": cfg.dtype, "batch": B,
+           "seq": S, "ce_chunk": cfg.ce_chunk, "steps": steps, "params":
+           port.lm_common.param_count(params0), "patterns": len(pats), "blocklist_k": 1}
+    torch.cuda.synchronize()
+    port.reset_launches()
+    ck.save = spy_save
+    try:
+        with spies:
+            t0 = time.perf_counter()
+            try:
+                loop.train(loss_fn, params0, pipeline(), tc, fault_at_step=fault_at,
+                           log=logs.append, device=DEVICE)
+                check(False, "main-train: the injected fault did not surface")
+            except port.ft.InjectedFault:
+                pass
+            first_s = time.perf_counter() - t0
+            check(ck.latest_step(ckdir) == resume_at,
+                  f"main-train: latest checkpoint {ck.latest_step(ckdir)} != {resume_at}")
+            restored, at = ck.restore((params0, opt.adamw_init(params0)), ckdir, device=DEVICE)
+            check(at == resume_at, f"main-train: restored step {at}")
+            out["restored_leaves_bit_equal"] = same_bits(torch, restored, held_copy.pop("state"),
+                                                         "main-train restored state")
+            del restored
+            t0 = time.perf_counter()
+            params, state, hist = loop.train(loss_fn, params0, pipeline(), tc, log=logs.append,
+                                             device=DEVICE)
+            torch.cuda.synchronize()
+            resumed_s = time.perf_counter() - t0
+        launches = port.launches()
+    finally:
+        ck.save = real_save
+    check(f"resumed from step {resume_at}" in logs, "main-train: the second run did not resume")
+    check(len(hist) == steps - resume_at, f"main-train: {len(hist)} resumed steps")
+    check(ck.latest_step(ckdir) == steps and not list(ckdir.glob(".tmp_*")),
+          f"main-train: step {steps} not published, or a .tmp_* left")
+    losses = {"0": loss_at(logs, 0), str(every): loss_at(logs, every), str(steps - 1): hist[-1]}
+    check(all(np.isfinite(v) for v in hist) and hist[-1] < losses["0"],
+          f"main-train: losses {losses}")
+    # the data plane: verdicts, stream windows and dispatches of both pipelines
+    n_in = max(p.stats.docs_in for p in pipes)
+    want = oracle_blocked(np, docs[:n_in], pats, 1)
+    dispatches, windows, groups = 0, 0, len(pipes[0].pattern_set.plans)
+    for pipe, cs in zip(pipes, calls):
+        n = pipe.stats.docs_in
+        got = filter_verdicts(np, pl, docs[:n], cs, "main-train")
+        bad = np.flatnonzero(got != want[:n])
+        check(bad.size == 0, f"main-train: {bad.size} verdicts differ from the oracle")
+        dispatches += sum(kind == "batch" for kind, _, _ in cs)
+        windows += sum(sc.dispatch_count for sc in pipe.pattern_set._scanners.values())
+    big_blocked = [bool(v) for d, v in zip(docs[:n_in], want) if len(d) > pl.MAX_FILTER_LEN]
+    check(big_blocked and all(big_blocked), f"main-train: oversize verdicts {big_blocked}")
+    check(launches["megascan"] == windows > 0,
+          f"main-train: megascan {launches['megascan']} != {windows} stream windows")
+    check(launches["approx"] == dispatches * groups == spies.calls["approx_dense"],
+          f"main-train: approx {launches['approx']} != {dispatches} dispatches x {groups} groups")
+    out.update(first_run_s=first_s, resumed_run_s=resumed_s, resumed_steps=len(hist),
+               resumed_tokens_per_s=len(hist) * B * S / resumed_s, loss=losses,
+               docs_filtered=n_in, docs_blocked=int(want.sum()), filter_dispatches=dispatches,
+               length_groups=groups, stream_windows=windows,
+               launches={k: launches[k] for k in ("approx", "megascan", "multipattern",
+                                                  "acscan", "acscan_counts")})
+
+    # one step's time, profile and peak memory, on one batch of the documents
+    small = [d for d in docs if len(d) < MIB]
+    batch = loop.batch_to(next(pl.LMDataPipeline(iter(small), seq_len=S, batch_size=B,
+                                                 device=DEVICE)), DEVICE)
+    cur = {"p": params, "s": state}
+
+    def step_with(step_fn):
+        cur["p"], cur["s"], _ = step_fn(cur["p"], cur["s"], batch)
+
+    train_step = loop.make_train_step(loss_fn, ocfg)
+    step_with(train_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step_with(train_step)
+    torch.cuda.synchronize()
+    out["fenced_step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["profile"] = {"train_step": profile_units(torch, lambda: step_with(train_step), 3)}
+    out["tokens_per_s"] = B * S / out["profile"]["train_step"]["wall_ms"] * 1e3
+    peaks = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        fn = loop.make_train_step(lambda p, b, _c=c: tf.train_loss(p, _c, b), ocfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_bytes = torch.cuda.memory_allocated()
+        step_with(fn)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        peaks["remat_on" if remat else "remat_off"] = {"peak_gib": peak / GIB,
+                                                       "above_state_gib": (peak - held_bytes) / GIB}
+    out["peak_memory"] = peaks
+
+    # checkpoint save (async) and restore of the full state
+    d = work / "timing"
+    state_tree = (cur["p"], cur["s"])
+    t0 = time.perf_counter()
+    writer = ck.save(state_tree, d, steps + 1, async_=True)
+    return_s = time.perf_counter() - t0
+    writer.join()
+    write_s = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in (d / f"step_{steps + 1:08d}").iterdir())
+    t0 = time.perf_counter()
+    back, _ = ck.restore(state_tree, d, device=DEVICE)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same_bits(torch, back, state_tree, "main-train checkpoint round trip")
+    out["checkpoint"] = {"bytes": size, "async_return_s": return_s, "write_s": write_s,
+                         "restore_s": restore_s}
+    del back, state_tree, params, state, params0, cur, batch
+    torch.cuda.empty_cache()
+
+    # the entry points: the launcher trains with checkpoints, the server
+    # restores its last one
+    d = work / "entry"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lt_params, lt_state = port.launch_train.main(
+            ["--reduced", "--steps", "30", "--seq", "128", "--batch", "8", "--ckpt-dir", str(d),
+             "--ckpt-every", "10"])
+        results, served, step = port.launch_serve.main(["--ckpt-dir", str(d)])
+    printed = buf.getvalue().splitlines()
+    check(step == 30 and "restored step 30" in printed and int(lt_state.step) == 30,
+          f"main-train: the server restored step {step}")
+    ck_params, _ = ck.restore((served, opt.adamw_init(served)), d, device=DEVICE)[0]
+    same_bits(torch, served, ck_params, "main-train served parameters against the checkpoint")
+    same_bits(torch, served, lt_params, "main-train served parameters against the launcher's")
+    out["entry_points"] = {"launcher_lines": [l for l in printed if l.startswith(("mesh", "step", "done"))],
+                           "served": len(results), "restored_step": step,
+                           "server_line": next(l for l in printed if l.startswith("served"))}
+    del lt_params, lt_state, served, ck_params
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    emit(out)
+    return {"launches": out["launches"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3237,7 +3677,7 @@ def main() -> int:
     for name, v in sharded["launches"].items():
         launches["acscan" if name == "acscan_counts" else name] += v
     t0 = time.perf_counter()
-    compared_lm = compare_lm(torch, np, port, args.seed, {"steps": 8, "moe_layers": 2})
+    compared_lm = compare_lm(torch, np, port, args.seed, {"steps": 8, "moe_layers": 1})
     emit({"phase": "compare-lm", **compared_lm, "seconds": round(time.perf_counter() - t0, 3)})
     t0 = time.perf_counter()
     lm = main_lm(torch, np, port, args.seed,
@@ -3245,7 +3685,7 @@ def main() -> int:
     emit({"phase": "main-lm", "seconds": round(time.perf_counter() - t0, 3)})
     t0 = time.perf_counter()
     piped = main_pipeline(torch, np, port, args.seed,
-                          {"text": 256 * MIB, "k1_text": 64 * MIB, "dedup_text": 4 * MIB})
+                          {"text": 128 * MIB, "k1_text": 32 * MIB, "dedup_text": 4 * MIB})
     emit({"phase": "main-pipeline", "launches": piped["launches"],
           "seconds": round(time.perf_counter() - t0, 3)})
     # the stop scan's multipattern ('b' stops) and approx (fuzzy stops)
@@ -3256,6 +3696,19 @@ def main() -> int:
     for name, v in piped["launches"].items():
         if name != "acscan":
             launches["acscan" if name == "acscan_counts" else name] += v
+    t0 = time.perf_counter()
+    compared_tr = compare_train(torch, np, port, args.seed, {"steps": 3, "moe_layers": 1})
+    emit({"phase": "compare-train", **compared_tr, "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    trained = main_train(torch, np, port, args.seed,
+                         {"batch": 8, "seq": 1024, "steps": 60, "ckpt_every": 20, "fault_at": 45,
+                          "text": 2 * MIB})
+    emit({"phase": "main-train", "launches": trained["launches"],
+          "seconds": round(time.perf_counter() - t0, 3)})
+    # the training data plane's filter: approx a length group a dispatch
+    # (k = 1), megascan a window of the oversize documents
+    for name in ("approx", "megascan"):
+        launches[name] += trained["launches"][name]
     rows = timing(torch, port, args.seed, GIB)
     rows["multipattern"] = timing_multipattern(torch, port, args.seed, 8, 8 * MIB, 32)
     rows.update(timing_stream_approx(torch, np, port, args.seed, 64 * MIB,

@@ -1,9 +1,12 @@
-"""The shard-stream cluster entrypoint, in the PyTorch port.
+"""The shard-stream cluster entrypoint and the production mesh's device
+check, in the PyTorch port.
 
 The port's counterpart of ``repro.launch.mesh.init_stream_cluster``: the
-processes of one sharded scan join a ``torch.distributed`` gloo group.  The
-reference's production meshes belong to the training scaffold and are not
-part of this module.  Importing it touches no device and opens no socket.
+processes of one sharded scan join a ``torch.distributed`` gloo group.  Of
+the reference's meshes only the device count of the production mesh is
+here: training runs on one device until the multi-device layer (the spec
+tables of ``dist/sharding.py``) is ported.  Importing this module touches
+no device and opens no socket.
 """
 
 from __future__ import annotations
@@ -11,6 +14,20 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 from repro_torch.dist import compat
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's 16x16 mesh (2x16x16 with multi_pod) needs 256 (512)
+    devices: raise on fewer, as the reference's mesh construction does.
+    With enough devices it still raises: the port has no sharded model
+    path yet."""
+    import torch
+
+    need = 512 if multi_pod else 256
+    have = torch.cuda.device_count()
+    if have < need:
+        raise ValueError(f"the production mesh needs {need} devices; this host has {have}")
+    raise NotImplementedError("the production mesh waits for the port's multi-device layer")
 
 
 def init_stream_cluster(

@@ -2,11 +2,12 @@
 the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 4 --max-new 32
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --ckpt-dir DIR
 
-The port's copy of ``repro.launch.serve``, without ``--ckpt-dir`` (the
-checkpoint module is not ported yet): the model is the reduced smollm-135m
-with random weights drawn from seed 0.
+The port's copy of ``repro.launch.serve``: the model is the reduced
+smollm-135m with random weights drawn from seed 0, or, with ``--ckpt-dir``,
+the parameters of the newest checkpoint there (written by either package's
+``train/checkpoint.py``, e.g. by ``launch.train --reduced``).
 """
 
 from __future__ import annotations
@@ -22,12 +23,16 @@ from repro_torch.core.packing import resolve_device
 from repro_torch.data.pipeline import VOCAB
 from repro_torch.models import transformer as tf
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.optimizer import adamw_init
 
 
 def main(argv=None):
+    """Returns (results, the served parameters, the restored step or None)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--device", default=None, help="default: the card; 'cpu' to opt out")
     args = ap.parse_args(argv)
 
@@ -38,6 +43,10 @@ def main(argv=None):
     )
     gen = torch.Generator(device=dev).manual_seed(0)
     params = tf.init_params(gen, cfg, device=dev)
+    step = None
+    if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        (params, _), step = ckpt.restore((params, adamw_init(params)), args.ckpt_dir, device=dev)
+        print(f"restored step {step}")
 
     eng = ServeEngine(params, cfg, max_len=256, device=dev)
     prompts = [f"request {i:02d} says ".encode() for i in range(args.requests)]
@@ -52,7 +61,7 @@ def main(argv=None):
           f"({toks/dt:.1f} tok/s)")
     for p, r in zip(prompts, results):
         print(f"  {p!r} -> {r.text[:40]!r} stopped_by={r.stopped_by!r}")
-    return results
+    return results, eng.params, step
 
 
 if __name__ == "__main__":

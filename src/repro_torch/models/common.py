@@ -142,16 +142,24 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a nest of dicts / lists / tuples, in order."""
+    return list(_leaves(tree))
+
+
 def param_count(params) -> int:
     return sum(x.numel() for x in _leaves(params))
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a nest of dicts / lists / tuples."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every tensor of a nest of dicts / lists / tuples
+    (NamedTuples included); with ``rest``, to the matching tensors of
+    trees of the same structure, as ``fn(leaf, *others)``."""
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
+        out = [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
     return tree

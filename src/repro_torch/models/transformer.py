@@ -1,9 +1,11 @@
 """LM-family transformer, in PyTorch: llama-style blocks with GQA + RoPE +
-RMSNorm, optional MoE FFN (phi3.5-moe, grok-1).  Serving only: no loss, no
-gradient, no remat.
+RMSNorm, optional MoE FFN (phi3.5-moe, grok-1), with rematerialized layers
+for training.
 
-The port's copy of the serving half of ``repro.models.transformer``:
+The port's copy of ``repro.models.transformer``:
 
+  * ``train_loss``     — (B, S) tokens -> scalar CE loss (plus the MoE aux
+                         loss), differentiable by autograd;
   * ``prefill``        — (B, S) tokens -> last logits + KV cache;
   * ``decode_step``    — one token + KV cache -> logits, the cache updated;
   * ``decode_step_q8`` — the same against an int8 KV cache.
@@ -12,8 +14,12 @@ Parameters are a dict of tensors as in the reference, except that
 ``params["layers"]`` is a list of per-layer dicts (the reference stacks
 them on axis 0 and scans; here a Python loop runs over the list).
 ``models.convert.lm_params_from_numpy`` turns the reference's pytree into
-this layout.  The decode steps write the new K/V entries into the caches in
-place, at ``pos``, and return them.
+this layout.  With ``cfg.remat`` each layer of ``backbone`` runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+scanned layer): the backward pass recomputes it, so activation memory is
+one layer deep.  The decode steps write the new K/V entries into the
+caches in place, at ``pos``, and return them; no other operation here is
+in place.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.packing import resolve_device
 from repro_torch.models.attention import (apply_rope, decode_attention,
@@ -135,6 +142,16 @@ def unembed_matrix(params, cfg: LMConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
 
 
+def param_shapes(cfg: LMConfig):
+    """The parameters' shapes and dtypes, as meta tensors (nothing is
+    allocated or drawn)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = init_params(torch.Generator(), cfg, device="cpu")
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
@@ -168,6 +185,11 @@ def _ffn_block(h, lp, cfg: LMConfig):
     return h + y, aux
 
 
+def _layer(h, lp, cfg: LMConfig, positions):
+    h, _ = _attn_block(h, lp, cfg, positions)
+    return _ffn_block(h, lp, cfg)
+
+
 def _logits(params, cfg: LMConfig, h_last) -> torch.Tensor:
     h_last = rmsnorm(h_last, params["ln_f"], cfg.norm_eps)
     return (h_last @ unembed_matrix(params, cfg)).float()
@@ -176,6 +198,52 @@ def _logits(params, cfg: LMConfig, h_last) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Forward passes
 # ---------------------------------------------------------------------------
+
+def backbone(params, cfg: LMConfig, tokens: torch.Tensor):
+    """(B, S) int -> (final hidden states (B, S, d), the mean of the layers'
+    aux losses; dense layers give 0)."""
+    dt = dtype_of(cfg.dtype)
+    h = params["embed"][tokens.long()].to(dt)
+    positions = torch.arange(tokens.shape[1], device=h.device)
+    auxs = []
+    for lp in params["layers"]:
+        if cfg.remat:
+            # a layer draws nothing at random: no RNG state to replay
+            h, aux = checkpoint(_layer, h, lp, cfg, positions,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            h, aux = _layer(h, lp, cfg, positions)
+        auxs.append(aux)
+    h = rmsnorm(h, params["ln_f"], cfg.norm_eps)
+    return h, torch.stack(auxs).mean()
+
+
+def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor, targets: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """Cross-entropy without materializing (B, S, V) logits at once: float32
+    logits a chunk of positions at a time, the target logit picked by
+    mask-and-sum as in the reference."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the CE chunk {chunk}")
+    vocab = torch.arange(unembed.shape[-1], device=h.device)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for lo in range(0, S, chunk):
+        logits = (h[:, lo : lo + chunk] @ unembed).float()  # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        tt = targets[:, lo : lo + chunk].long()
+        picked = torch.where(vocab == tt[..., None], logits, 0.0).sum(dim=-1)
+        tot = tot + (lse - picked).sum()
+    return tot / (B * S)
+
+
+def train_loss(params, cfg: LMConfig, batch) -> torch.Tensor:
+    """batch = {"tokens": (B, S), "targets": (B, S)} -> scalar loss."""
+    h, aux = backbone(params, cfg, batch["tokens"])
+    loss = chunked_ce_loss(h, unembed_matrix(params, cfg), batch["targets"], cfg.ce_chunk)
+    return loss + cfg.aux_loss_coef * aux
+
 
 def prefill(params, cfg: LMConfig, tokens: torch.Tensor):
     """(B, S) -> (last-token logits (B, V) float32, kcache, vcache

@@ -30,7 +30,7 @@ def _imported_modules(path: Path):
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), f"{path.name} imports {mod}"
 
 
 def test_import_leaves_jax_out():
@@ -48,8 +48,10 @@ def test_import_leaves_jax_out():
         "repro_torch.configs.shapes, repro_torch.configs.registry, repro_torch.configs.smollm_135m, "
         "repro_torch.configs.yi_9b, repro_torch.configs.minitron_4b, "
         "repro_torch.configs.phi3_5_moe_42b_a6_6b, repro_torch.configs.grok_1_314b, "
-        "repro_torch.data.pipeline, repro_torch.serve.engine, repro_torch.launch.serve; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+        "repro_torch.data.pipeline, repro_torch.serve.engine, repro_torch.launch.serve, "
+        "repro_torch.train, repro_torch.train.optimizer, repro_torch.train.checkpoint, "
+        "repro_torch.train.loop, repro_torch.launch.train; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]; "
         "assert not bad, bad"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -86,3 +88,27 @@ def test_serving_and_pipeline_entry_points_need_the_card_or_cpu(monkeypatch):
         make(device="cpu")
     eng = ServeEngine(params, cfg, max_len=16, device="cpu")
     assert len(eng.generate([b"ab"], max_new_tokens=2)) == 1
+
+
+def test_training_entry_points_need_the_card_or_cpu(monkeypatch, tmp_path):
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import TrainConfig, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config("smollm-135m")
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    ckpt.save({"w": torch.ones(2)}, tmp_path, step=1)
+    for call in (
+        lambda: train(lambda p, b: 0.0, params, iter(()), TrainConfig(steps=0)),
+        lambda: ckpt.restore({"w": torch.zeros(2)}, tmp_path),
+        lambda: launch_train.main(["--reduced", "--steps", "0"]),
+        lambda: launch_serve.main(["--max-new", "1"]),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert float(ckpt.restore({"w": torch.zeros(2)}, tmp_path, device="cpu")[0]["w"][0]) == 1.0
+    assert train(lambda p, b: 0.0, params, iter(()), TrainConfig(steps=0), device="cpu")[2] == []

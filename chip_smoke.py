@@ -139,7 +139,7 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 repeated byte, so tokens drop past capacity on both sides,
                 the dispatch equal), B = 2, S = 128: train_loss and every
                 gradient leaf with remat on and off, one AdamW update from
-                the CPU's gradients, a 3-step make_train_step loss
+                the CPU's gradients, a 2-step make_train_step loss
                 trajectory, each within TRAIN_TOL or ADAM_TOL of the CPU's;
                 smollm's grad_accum = 2 against 1 on the card (the
                 gradients adamw_update gets, and the loss);
@@ -158,6 +158,43 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 then launch.train --reduced (30 steps, checkpoints every 10)
                 and launch.serve --ckpt-dir restoring its step 30, the
                 served parameters equal to the checkpoint's;
+  compare-recsys DIN, DIEN, BST and DCN-v2 at their published widths (DCN-v2
+                with its full dcn_default_vocabs tables, 577 M parameters)
+                on the card against their own run on the CPU from one
+                seeded init (float32, TF32 off), B = 256 from make_batch:
+                logits and serve_scores within RECSYS_TOL of the CPU's max
+                |logit|, train_loss and every gradient leaf within
+                TRAIN_TOL of the leaf's max, retrieval_scores on 4096
+                candidates within RECSYS_TOL;
+  compare-gnn   GatedGCN at full width (16 layers, d_hidden 70) on the card
+                against the CPU, remat on and off, on a Cora-sized
+                synthetic graph (full_graph_sm), 128 batched molecules
+                (graph readout) and one minibatch_lg subgraph (1024 seeds,
+                fanout 15, 10, padding edges live) sampled from a
+                Reddit-sized synthetic graph (232,965 nodes, ~114.5 M
+                edges, built once): the float32 loss, and the loss and
+                every gradient leaf of a float64 run, within TRAIN_TOL of
+                the CPU's float64 run; the card's and the CPU's float32
+                gradients against that run are printed (float32 alone, on
+                the CPU, is further than TRAIN_TOL from it there);
+  main-recsys   per recsys arch at full width: serve_scores at B = 512 (50
+                fenced calls, p50 / p99) and B = 262,144 (5 calls, rows/s,
+                peak memory), retrieval_scores of one user against 1 M
+                candidates (in blocks of RETRIEVAL_BLOCK rows), held
+                against serve_scores on a few hand-built rows; 20 steps of
+                train.loop.train at B = 65,536 (AdamW at the reference's
+                defaults, a fresh make_batch a step, the batches drawn
+                first by HOST_THREADS threads): examples/s, a fenced
+                step, losses, peak memory and a torch.profiler breakdown of
+                one step; the trained BST and DCN-v2 states saved and
+                restored bit-equal;
+  main-gnn      GatedGCN training at full width: 10 steps on fresh
+                minibatch_lg subgraphs (host sample ms beside the step),
+                20 on fresh batched molecules, 20 full-batch on the
+                Cora-sized graph: losses, steps/s, launches, syncs and idle
+                share of a step, peak memory; one checkpoint saved and
+                restored bit-equal; ogb_products is not run (one edge-state
+                tensor alone is 17.3 GB; it needs four cards);
   timing       median kernel times (CUDA events, queued behind a device sleep
                 so they exclude the wrapper's host time) beside the plain
                 versions' times and the bounds, and the times of epsm.find and
@@ -296,6 +333,9 @@ class Port:
         from repro_torch.train import checkpoint as train_ckpt
         from repro_torch.train import loop as train_loop
         from repro_torch.train import optimizer as train_opt
+        from repro_torch.data import graph as graph_data
+        from repro_torch.data import recsys_data
+        from repro_torch.models import gnn, recsys
 
         self.epsm, self.corpus, self.build = epsm, corpus, _build
         self.engine, self.mp, self.mp_ops = engine, multipattern, mp_ops
@@ -315,6 +355,7 @@ class Port:
         self.tf, self.lm_moe, self.lm_common = tf, lm_moe, lm_common
         self.ckpt, self.loop, self.opt = train_ckpt, train_loop, train_opt
         self.launch_train, self.launch_serve = launch_train, launch_serve
+        self.recsys, self.recsys_data, self.gnn, self.graph_data = recsys, recsys_data, gnn, graph_data
         self.wrappers = {"epsma": epsma_cuda, "epsmb": epsmb_cuda, "epsmc": epsmc_cuda,
                          "multipattern": multipattern_cuda, "megascan": megascan_cuda,
                          "approx": approx_cuda, "acscan": acscan_cuda,
@@ -3578,6 +3619,418 @@ def main_train(torch, np, port: Port, seed: int, sizes: dict) -> dict:
     return {"launches": out["launches"]}
 
 
+RECSYS_ARCHS = ("din", "dien", "bst", "dcn-v2")
+RECSYS_TOL = 1e-5
+
+
+def no_string_kernels(port: Port, what: str) -> None:
+    """The recsys and GNN paths reach no Pallas kernel: none of the seven
+    string-matching kernels launches in them."""
+    launched = {k: v for k, v in port.launches().items() if v}
+    check(not launched, f"{what}: string kernels launched {launched}")
+
+
+def fenced_ms(torch, fn, calls: int) -> list:
+    """ms of each of `calls` calls of fn, each ended by a synchronize."""
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def with_peak(torch, fn):
+    """(fn(), peak GiB allocated while it ran)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / GIB
+
+
+class TimedBatches:
+    """`steps` batches make(i), the host seconds each one took."""
+
+    def __init__(self, make, steps: int):
+        self.make, self.steps, self.seconds = make, steps, []
+
+    def __iter__(self):
+        for i in range(self.steps):
+            t0 = time.perf_counter()
+            batch = self.make(i)
+            self.seconds.append(time.perf_counter() - t0)
+            yield batch
+
+
+def recsys_candidates(np, port: Port, cfg, C: int, seed: int):
+    """C candidates: item ids (sequence models) or sparse rows (DCN-v2)."""
+    if cfg.kind == "dcn":
+        return port.recsys_data.dcn_batch(cfg, C, seed)["sparse"]
+    return np.random.RandomState(seed).randint(0, cfg.item_vocab, size=C).astype(np.int32)
+
+
+# Threads drawing main-recsys's host batches: make_batch draws 6.5 M zipf
+# values for a sequence model's batch of 65,536 (~1.3 s of one core), and
+# numpy's generators let go of the interpreter lock while they draw
+HOST_THREADS = 6
+
+def compare_recsys(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """The four recsys archs at their published widths on the card against
+    their own run on the CPU (float32, TF32 off), from one seeded init
+    drawn on the card and copied to the host."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rs, data, loop = port.recsys, port.recsys_data, port.loop
+    out = []
+    port.reset_launches()
+    for i, arch in enumerate(RECSYS_ARCHS):
+        t0 = time.perf_counter()
+        cfg = port.configs.get_arch(arch).make_config()
+        params = rs.init_params(torch.Generator(device=DEVICE).manual_seed(seed + i), cfg,
+                                device=DEVICE)
+        host = port.lm_common.tree_map(lambda t: t.cpu(), params)
+        batch = data.make_batch(cfg, sizes["batch"], seed=seed + i)
+        cb, hb = loop.batch_to(batch, DEVICE), loop.batch_to(batch, "cpu")
+        lh = rs.logits(host, cfg, hb)
+        errs = {"logits": held(torch, rs.logits(params, cfg, cb), lh, f"{arch} logits", RECSYS_TOL)}
+        sc = rs.serve_scores(params, cfg, batch, device=DEVICE).cpu()
+        sh = rs.serve_scores(host, cfg, batch, device="cpu")
+        errs["serve_scores"] = float((sc - sh).abs().max()) / float(lh.abs().max())
+        check(errs["serve_scores"] <= RECSYS_TOL,
+              f"{arch} serve_scores: {errs['serve_scores']} of max |logit| > {RECSYS_TOL}")
+        loss_fn = lambda p, b, _c=cfg: rs.train_loss(p, _c, b)
+        loss_c, grads_c = loop.value_and_grad(loss_fn, params, cb)
+        loss_h, grads_h = loop.value_and_grad(loss_fn, host, hb)
+        errs["loss"] = held(torch, loss_c, loss_h, f"{arch} loss", TRAIN_TOL)
+        errs["grads"] = tree_err(torch, grads_c, grads_h, f"{arch} grad", TRAIN_TOL)
+        del grads_c, grads_h
+        user = data.make_batch(cfg, 1, seed=seed + 100 + i, with_label=False)
+        cands = recsys_candidates(np, port, cfg, sizes["candidates"], seed + 200 + i)
+        errs["retrieval"] = held(torch, rs.retrieval_scores(params, cfg, user, cands, device=DEVICE),
+                                 rs.retrieval_scores(host, cfg, user, cands, device="cpu"),
+                                 f"{arch} retrieval_scores", RECSYS_TOL)
+        out.append({"arch": arch, "params": port.lm_common.param_count(params),
+                    "batch": sizes["batch"], "candidates": sizes["candidates"],
+                    "loss": float(loss_h), "max_rel_err": errs,
+                    "seconds": round(time.perf_counter() - t0, 3)})
+        del params, host, cb, hb
+        torch.cuda.empty_cache()
+    no_string_kernels(port, "compare-recsys")
+    return {"models": out, "tolerance": RECSYS_TOL, "tolerance_grads": TRAIN_TOL}
+
+
+def reddit_graph(np, port: Port, seed: int):
+    """The minibatch_lg base graph: a Reddit-sized synthetic graph (232,965
+    nodes, average degree 492, d_feat 602, 41 classes) on the host."""
+    meta = port.configs.GNN_SHAPES["minibatch_lg"].meta
+    return port.graph_data.synthetic_graph(
+        meta["base_nodes"], round(meta["base_edges"] / meta["base_nodes"]), meta["d_feat"],
+        meta["n_classes"], seed=seed)
+
+
+def sampled_batch(np, port: Port, graph, seed: int) -> dict:
+    """One minibatch_lg subgraph: 1024 seed nodes, fanout (15, 10), padded."""
+    meta = port.configs.GNN_SHAPES["minibatch_lg"].meta
+    seeds = np.random.RandomState(seed).choice(graph.n_nodes, meta["batch_nodes"], replace=False)
+    return port.graph_data.sample_subgraph(graph, seeds, meta["fanout"], seed=seed)
+
+
+def gnn_case(np, port: Port, shape: str, seed: int, reddit):
+    """(config, numpy batch, n_graphs) of a GatedGCN shape at full width."""
+    cfg = port.configs.get_arch("gatedgcn").make_config(shape)
+    meta = port.configs.GNN_SHAPES[shape].meta
+    if shape == "molecule":
+        return cfg, port.graph_data.batched_molecules(
+            meta["n_graphs"], meta["nodes_per_graph"], meta["edges_per_graph"], meta["d_feat"],
+            meta["d_edge_feat"], seed=seed), meta["n_graphs"]
+    if shape == "minibatch_lg":
+        return cfg, sampled_batch(np, port, reddit, seed), 0
+    g = port.graph_data.synthetic_graph(meta["n_nodes"], round(meta["n_edges"] / meta["n_nodes"]),
+                                        meta["d_feat"], meta["n_classes"], seed=seed)
+    return cfg, {"nodes": g.feats, "edges": port.graph_data.edge_list(g), "labels": g.labels}, 0
+
+
+GNN_SHAPES_RUN = ("full_graph_sm", "molecule", "minibatch_lg")
+
+
+def widened(torch, port: Port, cfg, params, batch):
+    """The GNN config, parameters and batch in float64 (the layer norms and
+    the loss stay float32, as the reference computes them)."""
+    wide = lambda t: t.double() if t.is_floating_point() else t
+    return (dataclasses.replace(cfg, dtype="float64", param_dtype="float64"),
+            port.lm_common.tree_map(wide, params), {k: wide(v) for k, v in batch.items()})
+
+
+def compare_gnn(torch, np, port: Port, seed: int, reddit) -> dict:
+    """GatedGCN at full width on the card against the CPU from one seeded
+    init, remat on and off: the float32 loss, and the loss and every
+    gradient leaf of a float64 run, within TRAIN_TOL of the CPU's float64
+    run (the layer norms and the loss stay float32 in it, as the reference
+    computes them).  The float32 gradients, the card's and the CPU's, are
+    readings against that run: on the larger graphs the CPU's own float32
+    run is further than TRAIN_TOL from it, so two float32 runs that sum in
+    other orders cannot be held to TRAIN_TOL.  The CPU runs each dtype once
+    (its remat on and off are bit-equal, tests/test_torch_gnn.py)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gnn, loop = port.gnn, port.loop
+    out = []
+    port.reset_launches()
+    for i, shape in enumerate(GNN_SHAPES_RUN):
+        t0 = time.perf_counter()
+        cfg, batch, n_graphs = gnn_case(np, port, shape, seed + i, reddit)
+        params = gnn.init_params(torch.Generator(device=DEVICE).manual_seed(seed + i), cfg,
+                                 device=DEVICE)
+        host = port.lm_common.tree_map(lambda t: t.cpu(), params)
+        cb, hb = loop.batch_to(batch, DEVICE), loop.batch_to(batch, "cpu")
+        loss = lambda c: (lambda p, b: gnn.train_loss(p, c, b, n_graphs))
+        c64, h64, hb64 = widened(torch, port, dataclasses.replace(cfg, remat=False), host, hb)
+        cpu64_loss, cpu64_grads = loop.value_and_grad(loss(c64), h64, hb64)
+        del h64, hb64
+        _, cpu32_grads = loop.value_and_grad(loss(dataclasses.replace(cfg, remat=False)), host, hb)
+        readings = {"cpu": tree_err(torch, cpu32_grads, cpu64_grads, "a reading", float("inf"))}
+        del cpu32_grads
+        errs, losses = {}, {"cpu_float64": float(cpu64_loss)}
+        for remat in (True, False):
+            tag = "remat_on" if remat else "remat_off"
+            c = dataclasses.replace(cfg, remat=remat)
+            lc, gc = loop.value_and_grad(loss(c), params, cb)
+            errs[f"loss_{tag}"] = held(torch, lc, cpu64_loss, f"gatedgcn {shape} loss ({tag})",
+                                       TRAIN_TOL)
+            readings[f"card_{tag}"] = tree_err(torch, gc, cpu64_grads, "a reading", float("inf"))
+            losses[tag] = float(lc)
+            del gc
+            c64, p64, cb64 = widened(torch, port, c, params, cb)
+            lc, gc = loop.value_and_grad(loss(c64), p64, cb64)
+            errs[f"loss_float64_{tag}"] = held(torch, lc, cpu64_loss,
+                                               f"gatedgcn {shape} float64 loss ({tag})", TRAIN_TOL)
+            errs[f"grads_float64_{tag}"] = tree_err(torch, gc, cpu64_grads,
+                                                    f"gatedgcn {shape} float64 grad ({tag})",
+                                                    TRAIN_TOL)
+            del gc, p64, cb64
+        row = {"shape": shape, "params": port.lm_common.param_count(params),
+               "nodes": int(batch["nodes"].shape[0]), "edges": int(batch["edges"].shape[1]),
+               "d_feat": cfg.d_feat, "readout": cfg.readout, "loss": losses, "max_rel_err": errs,
+               "float32_grads_against_cpu_float64": readings,
+               "seconds": round(time.perf_counter() - t0, 3)}
+        if "edge_mask" in batch:
+            row["padding_edges"] = int((batch["edge_mask"] == 0).sum())
+        out.append(row)
+        del params, host, cb, hb, cpu64_grads
+        torch.cuda.empty_cache()
+    no_string_kernels(port, "compare-gnn")
+    return {"graphs": out, "tolerance": TRAIN_TOL}
+
+
+def serve_rows(np, cfg, user: dict, cands, n: int) -> dict:
+    """The batch serve_scores takes for the first n (user, candidate) pairs:
+    what retrieval_scores scores in one batched forward."""
+    if cfg.kind == "dcn":
+        return {"dense": np.repeat(user["dense"], n, axis=0), "sparse": cands[:n]}
+    rep = {k: np.repeat(user[k], n, axis=0) for k in ("hist_items", "hist_cates", "hist_mask")}
+    return {**rep, "target_item": cands[:n], "target_cate": cands[:n] % cfg.cate_vocab}
+
+
+def main_recsys(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """Serving, retrieval and training of each recsys arch at full width
+    (float32, the configs' own dtype; TF32 off, as the compare phases
+    leave it).  Each arch's host batches (serve_bulk's, one a train step)
+    and its candidates are drawn first, by HOST_THREADS threads at once, so
+    no host work runs beside the card's timed calls."""
+    work = ROOT / "build" / "recsys_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    out = []
+    port.reset_launches()
+    with ThreadPoolExecutor(HOST_THREADS) as pool:
+        for i, arch in enumerate(RECSYS_ARCHS):
+            row = recsys_arch(torch, np, port, pool, seed, i, arch, sizes, work)
+            emit({"phase": "main-recsys", **row})
+            out.append(row)
+    no_string_kernels(port, "main-recsys")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"archs": [r["arch"] for r in out]}
+
+
+def recsys_arch(torch, np, port: Port, pool, seed: int, i: int, arch: str, sizes: dict,
+                work) -> dict:
+    rs, data, loop, opt, ck = port.recsys, port.recsys_data, port.loop, port.opt, port.ckpt
+    t_arch = time.perf_counter()
+    cfg = port.configs.get_arch(arch).make_config()
+    B_bulk, C = sizes["bulk_batch"], sizes["candidates"]
+    B, steps = sizes["train_batch"], sizes["train_steps"]
+    t0 = time.perf_counter()
+    bulk_job = pool.submit(data.make_batch, cfg, B_bulk, seed + 20 + i, False)
+    cand_job = pool.submit(recsys_candidates, np, port, cfg, C, seed + 40 + i)
+    train_jobs = [pool.submit(data.make_batch, cfg, B, seed + 1000 * i + s) for s in range(steps)]
+    bulk_batch, cands = bulk_job.result(), cand_job.result()
+    train_batches = [job.result() for job in train_jobs]
+    host_s = time.perf_counter() - t0
+    params = rs.init_params(torch.Generator(device=DEVICE).manual_seed(seed + i), cfg,
+                            device=DEVICE)
+    row = {"arch": arch, "params": port.lm_common.param_count(params),
+           "host_batches_s": host_s, "host_threads": HOST_THREADS}
+    # serve_p99: fenced calls from a host batch (the copy included)
+    batch = data.make_batch(cfg, sizes["serve_batch"], seed=seed + 10 + i, with_label=False)
+    serve = lambda b=batch: rs.serve_scores(params, cfg, b, device=DEVICE)
+    fenced_ms(torch, serve, 3)
+    ms = fenced_ms(torch, serve, sizes["serve_calls"])
+    scores = serve()
+    check(scores.shape == (sizes["serve_batch"],) and bool(torch.isfinite(scores).all()),
+          f"main-recsys {arch}: serve scores")
+    row["serve_p99"] = {"batch": sizes["serve_batch"], "calls": len(ms),
+                        "p50_ms": float(np.percentile(ms, 50)),
+                        "p99_ms": float(np.percentile(ms, 99)), "max_ms": max(ms)}
+    # serve_bulk
+    serve = lambda b=bulk_batch: rs.serve_scores(params, cfg, b, device=DEVICE)
+    ms, peak = with_peak(torch, lambda: fenced_ms(torch, serve, sizes["bulk_calls"]))
+    scores = serve()
+    check(scores.shape == (B_bulk,) and bool(torch.isfinite(scores).all()),
+          f"main-recsys {arch}: bulk scores")
+    row["serve_bulk"] = {"batch": B_bulk, "calls": len(ms), "median_ms": statistics.median(ms),
+                         "rows_per_s": B_bulk / statistics.median(ms) * 1e3, "peak_gib": peak}
+    del bulk_batch, scores
+    # retrieval_cand: one user against C candidates
+    user = data.make_batch(cfg, 1, seed=seed + 30 + i, with_label=False)
+    retrieve = lambda: rs.retrieval_scores(params, cfg, user, cands, device=DEVICE)
+    (scores, ms), peak = with_peak(torch, lambda: (retrieve(), fenced_ms(torch, retrieve, 3)))
+    check(scores.shape == (C,) and bool(torch.isfinite(scores).all()),
+          f"main-recsys {arch}: retrieval scores")
+    n = 8
+    direct = rs.serve_scores(params, cfg, serve_rows(np, cfg, user, cands, n), device=DEVICE)
+    agree = held(torch, scores[:n], direct, f"main-recsys {arch}: retrieval against serve",
+                 RECSYS_TOL)
+    row["retrieval_cand"] = {"candidates": C, "block": rs.RETRIEVAL_BLOCK,
+                             "median_ms": statistics.median(ms),
+                             "candidates_per_s": C / statistics.median(ms) * 1e3,
+                             "peak_gib": peak, "rel_err_against_serve_rows": agree}
+    del scores, cands
+    torch.cuda.empty_cache()
+    # train_batch: train.loop.train, a fresh make_batch a step
+    ocfg = opt.AdamWConfig()
+    loss_fn = lambda p, b: rs.train_loss(p, cfg, b)
+    feed = iter(train_batches)
+    tc = loop.TrainConfig(steps=steps, log_every=1, opt=ocfg)
+    t0 = time.perf_counter()
+    (params, state, hist), peak = with_peak(
+        torch, lambda: loop.train(loss_fn, params, feed, tc, log=lambda line: None, device=DEVICE))
+    train_s = time.perf_counter() - t0
+    del train_batches
+    check(len(hist) == steps and all(np.isfinite(hist)), f"main-recsys {arch}: losses {hist}")
+    cur = {"p": params, "s": state}
+    batch = loop.batch_to(data.make_batch(cfg, B, seed=seed + 999), DEVICE)
+    step_fn = loop.make_train_step(loss_fn, ocfg)
+
+    def step():
+        cur["p"], cur["s"], _ = step_fn(cur["p"], cur["s"], batch)
+
+    step()
+    row["train_batch"] = {
+        "batch": B, "steps": steps, "train_s": train_s, "examples_per_s": steps * B / train_s,
+        "fenced_step_ms": fenced_ms(torch, step, 1)[0],
+        "loss": {"0": hist[0], str(steps - 1): hist[-1]}, "peak_gib": peak,
+        "profile": profile_units(torch, step, 1)}
+    del params, state, batch
+    # fault 6's path on the card: towers, blocks, cross and tables
+    if arch in ("bst", "dcn-v2"):
+        d = work / arch
+        tree = (cur["p"], cur["s"])
+        t0 = time.perf_counter()
+        ck.save(tree, d, steps)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in (d / f"step_{steps:08d}").iterdir())
+        t0 = time.perf_counter()
+        back, at = ck.restore(tree, d, device=DEVICE)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(at == steps, f"main-recsys {arch}: restored step {at}")
+        row["checkpoint"] = {"bytes": size, "save_s": save_s, "restore_s": restore_s,
+                             "leaves_bit_equal": same_bits(torch, back, tree,
+                                                           f"main-recsys {arch} checkpoint")}
+        del back, tree
+        shutil.rmtree(d, ignore_errors=True)
+    del cur
+    torch.cuda.empty_cache()
+    row["seconds"] = round(time.perf_counter() - t_arch, 3)
+    return row
+
+
+def main_gnn(torch, np, port: Port, seed: int, reddit, sizes: dict) -> dict:
+    """GatedGCN training at full width through train.loop.train (AdamW at
+    the reference's defaults): minibatch_lg on fresh sampled subgraphs of
+    the Reddit-sized graph, molecule on fresh batches, full_graph_sm
+    full-batch; one checkpoint saved and restored."""
+    gnn, loop, opt, ck = port.gnn, port.loop, port.opt, port.ckpt
+    work = ROOT / "build" / "gnn_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    out = []
+    port.reset_launches()
+    saved = None
+    for i, shape in enumerate(GNN_SHAPES_RUN[::-1]):
+        t_shape = time.perf_counter()
+        cfg, first, n_graphs = gnn_case(np, port, shape, seed + 50 + i, reddit)
+        steps = sizes["steps"][shape]
+        if shape == "full_graph_sm":
+            make = lambda s, _b=first: _b
+        else:
+            make = lambda s, _shape=shape: gnn_case(np, port, _shape, seed + 60 + s, reddit)[1]
+        params = gnn.init_params(torch.Generator(device=DEVICE).manual_seed(seed + 50 + i), cfg,
+                                 device=DEVICE)
+        loss_fn = lambda p, b, _c=cfg, _n=n_graphs: gnn.train_loss(p, _c, b, _n)
+        ocfg = opt.AdamWConfig()
+        feed = TimedBatches(make, steps)
+        tc = loop.TrainConfig(steps=steps, log_every=1, opt=ocfg)
+        t0 = time.perf_counter()
+        (params, state, hist), peak = with_peak(
+            torch, lambda: loop.train(loss_fn, params, feed, tc, log=lambda s: None, device=DEVICE))
+        train_s = time.perf_counter() - t0
+        check(len(hist) == steps and all(np.isfinite(hist)), f"main-gnn {shape}: losses {hist}")
+        cur = {"p": params, "s": state}
+        batch = loop.batch_to(first, DEVICE)
+        step_fn = loop.make_train_step(loss_fn, ocfg)
+
+        def step():
+            cur["p"], cur["s"], _ = step_fn(cur["p"], cur["s"], batch)
+
+        step()
+        row = {"shape": shape, "params": port.lm_common.param_count(params),
+               "nodes": int(first["nodes"].shape[0]), "edges": int(first["edges"].shape[1]),
+               "steps": steps, "train_s": train_s, "steps_per_s": steps / train_s,
+               "host_batch_ms": statistics.median(feed.seconds) * 1e3,
+               "step_ms_without_host_batch": (train_s - sum(feed.seconds)) / steps * 1e3,
+               "fenced_step_ms": fenced_ms(torch, step, 1)[0],
+               "loss": {"0": hist[0], str(steps - 1): hist[-1]}, "peak_gib": peak,
+               "profile": profile_units(torch, step, 2)}
+        if shape == "minibatch_lg":
+            row["padding_edges_first_batch"] = int((first["edge_mask"] == 0).sum())
+            d = work / shape
+            tree = (cur["p"], cur["s"])
+            ck.save(tree, d, steps)
+            back, at = ck.restore(tree, d, device=DEVICE)
+            check(at == steps, f"main-gnn: restored step {at}")
+            saved = same_bits(torch, back, tree, "main-gnn checkpoint")
+            row["checkpoint_leaves_bit_equal"] = saved
+            del back, tree
+        del params, state, batch, cur
+        torch.cuda.empty_cache()
+        row["seconds"] = round(time.perf_counter() - t_shape, 3)
+        emit({"phase": "main-gnn", **row})
+        out.append(row)
+    check(saved, "main-gnn: no checkpoint was checked")
+    no_string_kernels(port, "main-gnn")
+    shutil.rmtree(work, ignore_errors=True)
+    meta = port.configs.GNN_SHAPES["ogb_products"].meta
+    edge_state = meta["n_edges"] * 70 * 4
+    emit({"phase": "main-gnn", "shape": "ogb_products", "run": False,
+          "reason": f"one (E, d_hidden) float32 edge-state tensor is {edge_state / 1e9:.1f} GB "
+                    f"({meta['n_edges']} edges x 70); a layer holds several at once and remat "
+                    f"keeps one a layer (16 x {edge_state / 1e9:.1f} GB): more than one 80 GB "
+                    "card, so it waits for the four-card slice"})
+    return {"shapes": [r["shape"] for r in out]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3697,7 +4150,7 @@ def main() -> int:
         if name != "acscan":
             launches["acscan" if name == "acscan_counts" else name] += v
     t0 = time.perf_counter()
-    compared_tr = compare_train(torch, np, port, args.seed, {"steps": 3, "moe_layers": 1})
+    compared_tr = compare_train(torch, np, port, args.seed, {"steps": 2, "moe_layers": 1})
     emit({"phase": "compare-train", **compared_tr, "seconds": round(time.perf_counter() - t0, 3)})
     t0 = time.perf_counter()
     trained = main_train(torch, np, port, args.seed,
@@ -3709,6 +4162,27 @@ def main() -> int:
     # (k = 1), megascan a window of the oversize documents
     for name in ("approx", "megascan"):
         launches[name] += trained["launches"][name]
+    t0 = time.perf_counter()
+    compared_rs = compare_recsys(torch, np, port, args.seed, {"batch": 256, "candidates": 4096})
+    emit({"phase": "compare-recsys", **compared_rs, "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    reddit = reddit_graph(np, port, args.seed)
+    emit({"phase": "reddit-graph", "nodes": reddit.n_nodes, "edges": reddit.n_edges,
+          "d_feat": int(reddit.feats.shape[1]), "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    compared_gnn = compare_gnn(torch, np, port, args.seed, reddit)
+    emit({"phase": "compare-gnn", **compared_gnn, "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    main_recsys(torch, np, port, args.seed,
+                {"serve_batch": 512, "serve_calls": 50, "bulk_batch": 262_144, "bulk_calls": 5,
+                 "candidates": 1_000_000,
+                 "train_batch": 65_536, "train_steps": 20})
+    emit({"phase": "main-recsys", "seconds": round(time.perf_counter() - t0, 3)})
+    t0 = time.perf_counter()
+    main_gnn(torch, np, port, args.seed, reddit,
+             {"steps": {"minibatch_lg": 10, "molecule": 20, "full_graph_sm": 20}})
+    emit({"phase": "main-gnn", "seconds": round(time.perf_counter() - t0, 3)})
+    del reddit
     rows = timing(torch, port, args.seed, GIB)
     rows["multipattern"] = timing_multipattern(torch, port, args.seed, 8, 8 * MIB, 32)
     rows.update(timing_stream_approx(torch, np, port, args.seed, 64 * MIB,

@@ -14,7 +14,9 @@ and its JSON-lines server), ``obs`` and ``data.corpus``; ``core.remote_source``,
 (sharded, fault-tolerant streaming); and the byte-level LM serving path:
 ``models`` (common blocks, attention with the int8 KV cache, MoE, the
 transformer's prefill and decode steps, ``convert`` from the reference's
-parameters), ``configs`` (the five LM architectures), ``data.pipeline``
+parameters), ``configs`` (the ten architectures), ``data.pipeline``
 (blocklist filter and dedup), ``serve.engine`` (``StopScanner``,
-``ServeEngine``) and ``launch.serve``.
+``ServeEngine``) and ``launch.serve``; LM training (``train``,
+``launch.train``); and the recsys and GNN families (``models.embedding``,
+``models.recsys``, ``models.gnn``, ``data.graph``, ``data.recsys_data``).
 """

@@ -16,9 +16,11 @@ import torch.nn.functional as F
 
 
 def dtype_of(name: str) -> torch.dtype:
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}[
-        name
-    ]
+    # float64 is the port's own: chip_smoke.py holds GatedGCN's gradients on
+    # the card against the CPU in float64, where no ReLU input sits within
+    # rounding of its kink
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16,
+            "float64": torch.float64}[name]
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +131,17 @@ def binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Te
     logits = logits.float()
     labels = labels.float()
     return torch.clamp(logits, min=0) - logits * labels + torch.log1p(torch.exp(-torch.abs(logits)))
+
+
+def is_stacked_layers(path, node) -> bool:
+    """Whether ``node`` at ``path`` (a tuple of keys) is the port's list of
+    per-layer dicts that the reference stacks on axis 0.  The reference
+    stacks exactly one list, the one under the key ``layers`` (the LM's
+    scanned layers, GatedGCN's vmapped ones); every other list (MLP
+    towers, BST ``blocks``, DCN-v2 ``cross`` and ``tables``) is a Python
+    list there, its index a path element and its leaves ranked alone."""
+    return (isinstance(node, list) and bool(node) and bool(path) and path[-1] == "layers"
+            and all(isinstance(x, dict) for x in node))
 
 
 def _leaves(tree):

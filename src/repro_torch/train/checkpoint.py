@@ -9,11 +9,14 @@ place, so a crash mid-save never corrupts the latest checkpoint.
 Leaf names are the reference's pytree paths joined by ``__``: dict keys in
 sorted order, tuple positions, NamedTuple fields, so ``(params,
 opt_state)`` gives ``0__embed``, ``0__layers__wq``, ``1__step``,
-``1__m__layers__wq``.  A list of dicts (the port's per-layer
-``params["layers"]``) is one stacked dict on disk, every leaf stacked on
-axis 0 as the reference's scanned layers are: ``save`` stacks and
-``restore`` splits.  bfloat16 leaves are written as their 16 raw bits under
-the header ml_dtypes' bfloat16 gives (``'<V2'``), with manifest dtype
+``1__m__layers__wq``.  The port's per-layer list under the key
+``layers`` is one stacked dict on disk, every leaf stacked on axis 0 as
+the reference's scanned layers are: ``save`` stacks and ``restore``
+splits.  Every other list is a list in the reference too, its index a
+path element: ``tower__0__w``, ``blocks__0__wq``, ``tables__7``
+(``models.common.is_stacked_layers``).  bfloat16 leaves are written
+as their 16 raw bits under the header ml_dtypes' bfloat16 gives
+(``'<V2'``), with manifest dtype
 ``"bfloat16"``, and read back the same way: the two packages restore each
 other's checkpoints, and neither this module nor its callers need
 ml_dtypes.
@@ -37,13 +40,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import resolve_device
+from repro_torch.models.common import is_stacked_layers
 
 _SEP = "__"
 _BF16 = "bfloat16"
-
-
-def _is_layer_list(node) -> bool:
-    return isinstance(node, list) and bool(node) and all(isinstance(x, Mapping) for x in node)
 
 
 def _flatten(tree, path=()):
@@ -57,7 +57,7 @@ def _flatten(tree, path=()):
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
         for f in tree._fields:
             yield from _flatten(getattr(tree, f), path + (f,))
-    elif _is_layer_list(tree):
+    elif is_stacked_layers(path, tree):
         per_layer = [dict(_flatten(x)) for x in tree]
         for sub in per_layer[0]:
             yield path + sub, [layer[sub] for layer in per_layer]
@@ -192,7 +192,7 @@ def _rebuild(like, path, load):
         return {k: _rebuild(v, path + (str(k),), load) for k, v in like.items()}
     if isinstance(like, tuple) and hasattr(like, "_fields"):
         return type(like)(*(_rebuild(getattr(like, f), path + (f,), load) for f in like._fields))
-    if _is_layer_list(like):
+    if is_stacked_layers(path, like):
         n = len(like)
         stacked = _rebuild(like[0], path, lambda p, shape: load(p, (n, *shape)))
         return [_index(stacked, i) for i in range(n)]

@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import is_stacked_layers, tree_leaves, tree_map
 
 
 class AdamWState(NamedTuple):
@@ -68,18 +68,20 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
-def _decay_mask(params, stacked: int = 0):
+def _decay_mask(params, path=(), stacked: int = 0):
     """Decay matrices; skip vectors (norm scales, biases, 1-D tables).
 
     The rank is the reference's: it stacks ``layers`` on axis 0, so a leaf
-    inside the port's per-layer list (a list of dicts) counts one axis more
-    (a layer's norm scale is a matrix there, and decays)."""
+    inside the port's per-layer list under that key counts one axis more (a
+    layer's norm scale is a matrix there, and decays).  Any other list
+    (an MLP tower, BST blocks) is a list there too: its leaves keep their
+    own rank (``models.common.is_stacked_layers``)."""
     if isinstance(params, torch.Tensor):
         return params.ndim + stacked >= 2
     if isinstance(params, dict):
-        return {k: _decay_mask(v, stacked) for k, v in params.items()}
-    stacked += all(isinstance(v, dict) for v in params)
-    return [_decay_mask(v, stacked) for v in params]
+        return {k: _decay_mask(v, path + (k,), stacked) for k, v in params.items()}
+    stacked += is_stacked_layers(path, params)
+    return [_decay_mask(v, path + (str(i),), stacked) for i, v in enumerate(params)]
 
 
 def adamw_init(params, cfg: Optional[AdamWConfig] = None) -> AdamWState:

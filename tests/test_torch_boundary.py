@@ -50,7 +50,10 @@ def test_import_leaves_jax_out():
         "repro_torch.configs.phi3_5_moe_42b_a6_6b, repro_torch.configs.grok_1_314b, "
         "repro_torch.data.pipeline, repro_torch.serve.engine, repro_torch.launch.serve, "
         "repro_torch.train, repro_torch.train.optimizer, repro_torch.train.checkpoint, "
-        "repro_torch.train.loop, repro_torch.launch.train; "
+        "repro_torch.train.loop, repro_torch.launch.train, repro_torch.models.embedding, "
+        "repro_torch.models.recsys, repro_torch.models.gnn, repro_torch.data.graph, "
+        "repro_torch.data.recsys_data, repro_torch.configs.din, repro_torch.configs.dien, "
+        "repro_torch.configs.bst, repro_torch.configs.dcn_v2, repro_torch.configs.gatedgcn; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]; "
         "assert not bad, bad"
     )
@@ -112,3 +115,40 @@ def test_training_entry_points_need_the_card_or_cpu(monkeypatch, tmp_path):
             call()
     assert float(ckpt.restore({"w": torch.zeros(2)}, tmp_path, device="cpu")[0]["w"][0]) == 1.0
     assert train(lambda p, b: 0.0, params, iter(()), TrainConfig(steps=0), device="cpu")[2] == []
+
+
+def test_recsys_and_gnn_entry_points_need_the_card_or_cpu(monkeypatch):
+    import numpy as np
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.recsys_data import make_batch
+    from repro_torch.models import gnn, recsys
+    from repro_torch.models.convert import gnn_params_from_numpy, recsys_params_from_numpy
+    from repro_torch.train.loop import TrainConfig, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rcfg, gcfg = reduced_config("din"), reduced_config("gatedgcn")
+    gen = lambda: torch.Generator().manual_seed(0)
+    params = recsys.init_params(gen(), rcfg, device="cpu")
+    gparams = gnn.init_params(gen(), gcfg, device="cpu")
+    host = {k: v.numpy() if isinstance(v, torch.Tensor) else [{n: t.numpy() for n, t in d.items()}
+                                                             for d in v]
+            for k, v in params.items()}
+    batch = make_batch(rcfg, 4, seed=0)
+    user, cands = make_batch(rcfg, 1, seed=1, with_label=False), np.arange(5, dtype=np.int32)
+    for call in (
+        lambda **kw: recsys.init_params(gen(), rcfg, **kw),
+        lambda **kw: gnn.init_params(gen(), gcfg, **kw),
+        lambda **kw: recsys.serve_scores(params, rcfg, batch, **kw),
+        lambda **kw: recsys.retrieval_scores(params, rcfg, user, cands, **kw),
+        lambda **kw: recsys_params_from_numpy(host, rcfg, **kw),
+        lambda **kw: train(lambda p, b: recsys.train_loss(p, rcfg, b), params, [batch],
+                           TrainConfig(steps=1, log_every=1), log=lambda s: None, **kw),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        call(device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gnn_params_from_numpy({}, gcfg)
+    assert recsys.serve_scores(params, rcfg, batch, device="cpu").shape == (4,)
+    assert gparams["layers"][0]["A"].device.type == "cpu"

@@ -3,12 +3,17 @@
 
 Run from the repository root, with one card and no arguments:
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--phases a,b,...]
+
+A bare run takes every phase and is the proof of the tree.  ``--phases``
+takes a comma-separated selection (env and build always run); a phase that
+reads another's result runs it too (NEEDS below), and the env line lists
+what ran.  The kernels line then lists the kernels whose timing ran.
 
 Phases, one JSON line each (more for main-multi and main-stream):
 
   env           torch / CUDA versions and the card's name and power limit;
-  build         nvcc builds the seven kernels from src/repro_torch/kernels/csrc,
+  build         nvcc builds the eight sources from src/repro_torch/kernels/csrc,
                 one nvcc per source, all at once;
   compare       each EPSM kernel's wrapper against its plain PyTorch version on
                 the card, bit for bit (torch.equal on the whole mask: the
@@ -195,6 +200,29 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 share of a step, peak memory; one checkpoint saved and
                 restored bit-equal; ogb_products is not run (one edge-state
                 tensor alone is 17.3 GB; it needs four cards);
+  fault7        PatternSet.contains_any_stream on the card with a 2056-byte
+                pattern, a set megascan refuses: the reference's verdict
+                (any occurrence, by bytes.find on the host) on a 4 MiB
+                genome that holds it, one that does not, and one with it
+                planted across a window seam: one acscan counts launch a window;
+  compare-baselines the paper's baselines (core.baselines) on its three
+                corpora at 4 MiB, m in the reference's FULL_M within each
+                loop's limits, two extracted patterns a length: the four
+                device loops (shift_or, kmp_dfa, hash3, bndm) through the
+                entry points between counter resets (their main path), each
+                mask bit-equal to the loop's plain version on the card (same
+                seg), to packed_naive on the card and to epsm.find (the EPSM
+                kernels); rabin_karp against packed_naive; the periodic text
+                [7, 7, 9] tiled, 1-byte and (seg + 1)-byte texts, segments
+                narrower than m, and the raises at m = 33 (SO) and 32 (BNDM);
+  timing-baselines each loop at 4 MiB a corpus, m = 8 and 16: kernel ms
+                (CUDA events, median of 20, queued behind a device sleep)
+                and the entry point's call ms, plain ms, the bound (bytes,
+                or the loop's counted steps times its operations a step),
+                the skip loops' warp lane efficiency, epsm.find ms (queued,
+                and a call's), packed_naive and rabin_karp fenced ms; then
+                a sweep of seg from 4 to 4096 over m in {4, 8, 16, 32} and
+                the best seg a loop beside the default;
   timing       median kernel times (CUDA events, queued behind a device sleep
                 so they exclude the wrapper's host time) beside the plain
                 versions' times and the bounds, and the times of epsm.find and
@@ -253,6 +281,12 @@ KERNEL_SOURCES = {
                  "src/repro/kernels/megascan/megascan.py:81"),
     "approx": ("src/repro_torch/kernels/csrc/approx.cu", "src/repro/kernels/approx/approx.py:55"),
     "acscan": ("src/repro_torch/kernels/csrc/acscan.cu", "src/repro/kernels/acscan/acscan.py:36"),
+    # the baselines' device loops replace no Pallas kernel: the reference's
+    # lax.scan / lax.while_loop over the whole text
+    "shift_or": ("src/repro_torch/kernels/csrc/baselines.cu", "src/repro/core/baselines.py:86"),
+    "kmp_dfa": ("src/repro_torch/kernels/csrc/baselines.cu", "src/repro/core/baselines.py:124"),
+    "hash3": ("src/repro_torch/kernels/csrc/baselines.cu", "src/repro/core/baselines.py:179"),
+    "bndm": ("src/repro_torch/kernels/csrc/baselines.cu", "src/repro/core/baselines.py:218"),
 }
 # H100 SXM integer rate on the CUDA cores (NVIDIA H100 whitepaper): 132 SMs x
 # 64 INT32 lanes a clock x 1.98 GHz boost.  The compares, adds, shifts and
@@ -336,6 +370,9 @@ class Port:
         from repro_torch.data import graph as graph_data
         from repro_torch.data import recsys_data
         from repro_torch.models import gnn, recsys
+        from repro_torch.core import baselines
+        from repro_torch.kernels.baselines import baselines as bl_kernel
+        from repro_torch.kernels.baselines import ref as bl_plain
 
         self.epsm, self.corpus, self.build = epsm, corpus, _build
         self.engine, self.mp, self.mp_ops = engine, multipattern, mp_ops
@@ -356,10 +393,13 @@ class Port:
         self.ckpt, self.loop, self.opt = train_ckpt, train_loop, train_opt
         self.launch_train, self.launch_serve = launch_train, launch_serve
         self.recsys, self.recsys_data, self.gnn, self.graph_data = recsys, recsys_data, gnn, graph_data
+        self.baselines, self.bl_plain = baselines, bl_plain
         self.wrappers = {"epsma": epsma_cuda, "epsmb": epsmb_cuda, "epsmc": epsmc_cuda,
                          "multipattern": multipattern_cuda, "megascan": megascan_cuda,
                          "approx": approx_cuda, "acscan": acscan_cuda,
-                         "acscan_counts": acscan_counts_cuda}
+                         "acscan_counts": acscan_counts_cuda,
+                         "shift_or": bl_kernel.shift_or_cuda, "kmp_dfa": bl_kernel.kmp_dfa_cuda,
+                         "hash3": bl_kernel.hash3_cuda, "bndm": bl_kernel.bndm_cuda}
         self.plain = {"epsma": epsma_ref, "epsmb": epsmb_ref, "epsmc": epsmc_filter_ref}
 
     def reset_launches(self) -> None:
@@ -1865,7 +1905,8 @@ def main_dict(torch, np, port: Port, seed: int, sizes: dict) -> dict:
         del avg, adv
     # -- stream_count of the english set over host memory: megascan turns
     # the 8192-pattern set away (more than 512 patterns a group), logged, and
-    # every window's shared pass takes the automaton
+    # every window is one acscan counts launch over the set's automaton (an
+    # automaton route the spy counts)
     ns = sizes["stream"]
     host = np.tile(ehost, ns // ehost.size)
     events = []
@@ -3624,7 +3665,7 @@ RECSYS_TOL = 1e-5
 
 
 def no_string_kernels(port: Port, what: str) -> None:
-    """The recsys and GNN paths reach no Pallas kernel: none of the seven
+    """The recsys and GNN paths reach no Pallas kernel: none of the
     string-matching kernels launches in them."""
     launched = {k: v for k, v in port.launches().items() if v}
     check(not launched, f"{what}: string kernels launched {launched}")
@@ -4031,9 +4072,306 @@ def main_gnn(torch, np, port: Port, seed: int, reddit, sizes: dict) -> dict:
     return {"shapes": [r["shape"] for r in out]}
 
 
+# --------------------------------------------------------------------------
+# The paper's baselines: four segmented device loops
+# --------------------------------------------------------------------------
+
+BASELINE_LOOPS = ("shift_or", "kmp_dfa", "hash3", "bndm")
+# the reference's FULL_M (benchmarks/paper_tables.py:39), the paper's m range
+BASELINE_M = (2, 4, 6, 8, 12, 16, 20, 24, 28, 32)
+# each loop's pattern lengths (hash3 below 3 is packed_naive, no loop)
+BASELINE_LIMITS = {"shift_or": (1, 32), "kmp_dfa": (1, 1 << 20), "hash3": (3, 1 << 20),
+                   "bndm": (1, 31)}
+# Integer operations a step of each loop, read from csrc/baselines.cu: a
+# Shift-Or byte shifts, ors and tests a bit (4 with the loop's compare); a
+# KMP byte forms the row index, compares the state and loops (3); a HASH3
+# iteration forms its hash (2 shifts, 2 adds, a mask), tests and adds the
+# shift and loops (9, verification of candidates left out); a BNDM inner
+# step ands, decrements, tests top, tests j, shifts, tests D and forms the
+# address (7).  Table and text loads are not counted.
+BASELINE_OPS = {"shift_or": 4, "kmp_dfa": 3, "hash3": 9, "bndm": 7}
+BASELINE_SWEEP_SEGS = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+BASELINE_SWEEP_M = (4, 8, 16, 32)
+
+
+def baseline_corpora(np, port: Port, n: int, seed: int) -> dict:
+    """The paper's three corpora (data/corpus.py) at n bytes, on the host."""
+    corpus = port.corpus
+    return {"genome": corpus.genome(n, seed), "protein": corpus.protein(n, seed),
+            "english": np.ascontiguousarray(corpus.english(n, seed))}
+
+
+def loop_lengths(name: str, lengths) -> list:
+    lo, hi = BASELINE_LIMITS[name]
+    return [m for m in lengths if lo <= m <= hi]
+
+
+def fault7_case(torch, np, port: Port, seed: int, n: int) -> dict:
+    """ROADMAP §3 fault 7 on the card: PatternSet.contains_any_stream with a
+    2056-byte pattern, a set megascan refuses (EPSMc stride + m > its tile),
+    answers as the reference does (any occurrence of any pattern; here by
+    bytes.find on the host) and raises nothing.  Every window must be one
+    acscan counts-mode launch over the set's automaton, and no other kernel
+    may launch."""
+    text = port.corpus.genome(n, seed + 7)
+    pats = [text[1000:3056].copy(), text[50:58].copy()]
+    absent = np.frombuffer(text.tobytes().lower(), np.uint8).copy()  # acgt: no occurrence
+    planted = absent.copy()
+    seam = n // 4
+    planted[seam - 1000 : seam + 1056] = pats[0]  # across a window seam
+    docs = {"present": text, "absent": absent, "planted": planted}
+    ps = port.mp.PatternSet(pats, device=DEVICE)
+    port.reset_launches()
+    got = {}
+    for name, doc in docs.items():
+        got[name] = bool(ps.contains_any_stream(doc, chunk_bytes=n // 4))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in port.launches().items() if v}
+    want = {name: any(doc.tobytes().find(p.tobytes()) >= 0 for p in pats)
+            for name, doc in docs.items()}
+    (sc,) = ps._scanners.values()
+    out = emit({"phase": "fault7", "n": n, "m": [len(p) for p in pats], "verdicts": got,
+                "oracle": want, "megascan_spec": sc.spec is not None, "windows": sc.dispatch_count,
+                "launches": launches})
+    check(got == want == {"present": True, "absent": False, "planted": True},
+          f"fault7: verdicts {got} != {want}")
+    check(sc.spec is None and sc.dispatch_count >= 3
+          and launches == {"acscan_counts": sc.dispatch_count},
+          f"fault7: launches {launches} != one acscan counts launch for each of the "
+          f"{sc.dispatch_count} windows")
+    return out
+
+
+def compare_baselines(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """The four loops through core.baselines' entry points on the paper's
+    three corpora at sizes['n'] (the main path: counters reset just before,
+    read just after), then each mask held bit for bit against the loop's
+    plain version on the card (same seg), packed_naive on the card and
+    epsm.find (the EPSM kernels); rabin_karp against packed_naive; the edge
+    cases and the raises."""
+    bl, plain, corpus = port.baselines, port.bl_plain, port.corpus
+    n, per_m = sizes["n"], sizes["patterns"]
+    hosts = baseline_corpora(np, port, n, seed)
+    texts = {c: torch.from_numpy(h.copy()).to(DEVICE) for c, h in hosts.items()}
+    cases = []
+    for c, host in hosts.items():
+        for m in BASELINE_M:
+            starts = corpus.pattern_starts(n, m, per_m, seed=500 + m)
+            for i, p in enumerate(corpus.extract_patterns(host, m, per_m, seed=500 + m)):
+                cases.append((c, m, i, torch.from_numpy(p.copy()).to(DEVICE), int(starts[i])))
+    torch.cuda.synchronize()
+    expected = {name: 0 for name in port.wrappers}
+    masks = {}
+    port.reset_launches()
+    t0 = time.perf_counter()
+    for c, m, i, p, _ in cases:
+        for name in BASELINE_LOOPS:
+            if m in loop_lengths(name, (m,)):
+                masks[name, c, m, i] = bl.BASELINES[name](texts[c], p)
+                expected[name] += 1
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = port.launches()
+    check(launches == expected, f"compare-baselines: launches {launches} != calls {expected}")
+    # every mask against the plain version, packed_naive and epsm.find
+    max_err = {name: 0 for name in BASELINE_LOOPS}
+    held = {"plain": 0, "packed_naive": 0, "epsm_find": 0, "rabin_karp": 0}
+    hits = 0
+    for c, m, i, p, start in cases:
+        text = texts[c]
+        naive = bl.packed_naive(text, p)
+        find = port.epsm.find(text, p)
+        check(torch.equal(naive, find), f"{c} m={m} #{i}: packed_naive != epsm.find")
+        check(bool(naive[start]), f"{c} m={m} #{i}: the extracted occurrence at {start}")
+        check(torch.equal(bl.rabin_karp(text, p), naive), f"{c} m={m} #{i}: rabin_karp")
+        held["epsm_find"] += 1
+        held["rabin_karp"] += 1
+        hits += int(naive.sum())
+        for name in BASELINE_LOOPS:
+            got = masks.pop((name, c, m, i), None)
+            if got is None:
+                continue
+            want = getattr(plain, f"{name}_ref")(text, p, bl.loop_table(name, p, DEVICE),
+                                                 bl.SEG[name])
+            err = int((got.to(torch.int8) - want.to(torch.int8)).abs().max())
+            max_err[name] = max(max_err[name], err)
+            check(torch.equal(got, want), f"{name} {c} m={m} #{i}: kernel != plain")
+            check(torch.equal(got, naive), f"{name} {c} m={m} #{i}: kernel != packed_naive")
+            held["plain"] += 1
+            held["packed_naive"] += 1
+    edges = baseline_edges(torch, np, port, seed)
+    return emit({"phase": "compare-baselines", "n": n, "patterns_per_m": per_m, "m": BASELINE_M,
+                 "launches": {k: launches[k] for k in BASELINE_LOOPS}, "main_path_s": main_s,
+                 "held": held, "hits": hits, "edges": edges, "max_abs_err": max_err,
+                 "equal": True})
+
+
+def baseline_edges(torch, np, port: Port, seed: int) -> dict:
+    """Edge cases of the seam rule on the card, each loop's kernel against
+    its plain version at the same seg and the host oracle (bytes.find's
+    twin, naive_np, for short texts; packed_naive for long ones)."""
+    bl, plain = port.baselines, port.bl_plain
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 22)
+    done = 0
+
+    def hold(name, text, p, seg, oracle, what):
+        nonlocal done
+        got = bl._loop(name, text, p, seg)
+        want = getattr(plain, f"{name}_ref")(text, p, bl.loop_table(name, p, DEVICE), seg) \
+            if text.numel() >= p.numel() else torch.zeros_like(got)
+        check(torch.equal(got, want), f"{name} {what} m={p.numel()} seg={seg}: kernel != plain")
+        check(torch.equal(got, oracle), f"{name} {what} m={p.numel()} seg={seg}: != oracle")
+        done += 1
+
+    def naive_mask(text, p):
+        return torch.from_numpy(bl.naive_np(text, p)).to(DEVICE)
+
+    # the periodic text [7, 7, 9] tiled, at the default seg and narrow ones
+    periodic = torch.tensor([7, 7, 9], dtype=torch.uint8, device=DEVICE).repeat(MIB // 3 + 1)
+    for m in (3, 6, 9, 12, 30):
+        p = periodic[:m].clone()
+        oracle = bl.packed_naive(periodic, p)
+        for name in BASELINE_LOOPS:
+            if m in loop_lengths(name, (m,)):
+                for seg in (None, 1, m - 1, m, 7):
+                    hold(name, periodic, p, seg or bl.SEG[name], oracle, "periodic")
+    # 1-byte texts, and texts of seg + 1 bytes (a second segment of one byte)
+    for name in BASELINE_LOOPS:
+        seg = bl.SEG[name]
+        for n, m in ((1, 1), (seg + 1, 1), (seg + 1, 3), (seg + 1, 8), (seg + 1, 31), (3, 8)):
+            if m not in loop_lengths(name, (m,)):
+                continue
+            text = random_text(torch, n, 2, gen)
+            p = text[max(0, n - m):].clone() if n >= m else random_text(torch, m, 2, gen)
+            hold(name, text, p, seg, naive_mask(text, p), f"n={n}")
+    # segments narrower than the pattern, on 64 KiB of genome
+    genome = random_text(torch, 64 * 1024, 4, gen, port.corpus.GENOME_ALPHABET)
+    for name in BASELINE_LOOPS:
+        for m, seg in ((16, 5), (31, 1), (31, 30), (8, 2)):
+            p = genome[4000 : 4000 + m].clone()
+            hold(name, genome, p, seg, bl.packed_naive(genome, p), "narrow")
+    # the raises at the reference's limits
+    raised = {}
+    for name, m in (("shift_or", 33), ("bndm", 32)):
+        try:
+            bl.BASELINES[name](genome, genome[:m].clone())
+        except ValueError:
+            raised[name] = m
+    check(raised == {"shift_or": 33, "bndm": 32}, f"baselines: raises {raised}")
+    return {"cases": done, "raised": raised}
+
+
+def warp_efficiency(torch, steps) -> float:
+    """Share of a warp's lane-steps that do work: the lanes' steps over 32
+    times the longest lane's, summed over warps (one thread a segment, 32
+    consecutive segments a warp; the last warp's missing lanes idle)."""
+    s = steps.double().cpu()
+    s = torch.nn.functional.pad(s, (0, (-s.numel()) % 32))
+    return float(s.sum() / (32 * s.view(-1, 32).max(1).values.sum()))
+
+
+def timing_baselines(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """Each loop at sizes['n'] a corpus, m = 8 and 16: the kernel (CUDA
+    events, median of 20, queued behind a device sleep) and the entry
+    point's call, its plain version, epsm.find at the same shape (queued,
+    and a call), packed_naive and rabin_karp (fenced wall),
+    the bound, and the warp lane efficiency of the skip loops (from the
+    plain version's steps a segment); then a sweep of seg over the paper's
+    m range, whose best per loop is printed beside the default."""
+    bl, plain, epsm, corpus = port.baselines, port.bl_plain, port.epsm, port.corpus
+    n = sizes["n"]
+    hosts = baseline_corpora(np, port, n, seed)
+    rows, summary = [], {}
+    for c, host in hosts.items():
+        text = torch.from_numpy(host.copy()).to(DEVICE)
+        for m in (8, 16):
+            p = torch.from_numpy(corpus.extract_patterns(host, m, 1, seed=600 + m)[0].copy()).to(
+                DEVICE)
+            # epsm.find's device time (queued) and its call's time with the host's
+            find_ms = time_cuda(torch, lambda: epsm.find(text, p), 20, queued=True)
+            find_call_ms = time_cuda(torch, lambda: epsm.find(text, p), 20)
+            naive_ms = statistics.median(fenced_ms(torch, lambda: bl.packed_naive(text, p), 5))
+            rk_ms = statistics.median(fenced_ms(torch, lambda: bl.rabin_karp(text, p), 5))
+            for name in BASELINE_LOOPS:
+                seg, table = bl.SEG[name], bl.loop_table(name, p, DEVICE)
+                wrapper, ref = port.wrappers[name], getattr(plain, f"{name}_ref")
+                kernel_ms = time_cuda(torch, lambda: wrapper(text, p, table, seg), 20, queued=True)
+                # the entry point's call: host table build, upload, launch
+                call_ms = time_cuda(torch, lambda: bl.BASELINES[name](text, p), 20)
+                plain_ms = time_cuda(torch, lambda: ref(text, p, table, seg), 3)
+                steps = plain.lane_steps(name, text, p, table, seg)
+                ops = float(steps.sum()) * BASELINE_OPS[name]
+                bound_ms, bound_by = bound_of(2 * n, ops)
+                row = emit({"phase": "timing-baselines", "kernel": name, "corpus": c, "n": n,
+                            "m": m, "seg": seg, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                            "steps_per_byte": float(steps.sum()) / n,
+                            "warp_efficiency": warp_efficiency(torch, steps),
+                            "call_ms": call_ms, "epsm_find_ms": find_ms,
+                            "epsm_find_call_ms": find_call_ms, "packed_naive_ms": naive_ms,
+                            "rabin_karp_ms": rk_ms, "GB_per_s": n / (kernel_ms * 1e-3) / 1e9})
+                rows.append(row)
+                summary.setdefault(name, row)  # genome, m = 8 goes in the kernels line
+    # the seg sweep: median ms of a queued launch at each seg, summed over
+    # corpora and m
+    sweep = {name: {} for name in BASELINE_LOOPS}
+    for c, host in hosts.items():
+        text = torch.from_numpy(host.copy()).to(DEVICE)
+        for m in BASELINE_SWEEP_M:
+            p = torch.from_numpy(corpus.extract_patterns(host, m, 1, seed=700 + m)[0].copy()).to(
+                DEVICE)
+            for name in BASELINE_LOOPS:
+                lo, hi = BASELINE_LIMITS[name]
+                if m < lo:
+                    continue
+                q = p[: min(m, hi)]  # bndm's 32 becomes its limit, 31
+                table, wrapper = bl.loop_table(name, q, DEVICE), port.wrappers[name]
+                for seg in BASELINE_SWEEP_SEGS:
+                    ms = time_cuda(torch, lambda: wrapper(text, q, table, seg), 5, queued=True)
+                    sweep[name].setdefault(seg, {})[f"{c}/m={m}"] = ms
+    best = {}
+    for name, by_seg in sweep.items():
+        totals = {seg: sum(v.values()) for seg, v in by_seg.items()}
+        best[name] = min(totals, key=totals.get)
+        emit({"phase": "timing-baselines", "sweep": name, "ms_summed": totals,
+              "best_seg": best[name], "default_seg": bl.SEG[name], "per_case": by_seg})
+    emit({"phase": "timing-baselines", "best_seg": best, "default_seg": dict(bl.SEG)})
+    return summary
+
+
+# Every phase, in the order a bare run takes them; env and build always run
+PHASES = ("compare", "compare-multi", "compare-stream", "compare-approx", "compare-automaton",
+          "main", "main-multi", "main-stream", "main-approx", "main-dict", "main-serve",
+          "compare-shard", "main-shard", "compare-lm", "main-lm", "main-pipeline",
+          "compare-train", "main-train", "compare-recsys", "compare-gnn", "main-recsys",
+          "main-gnn", "fault7", "compare-baselines", "timing-baselines", "timing")
+# Phases that read another phase's result run it too: the main stream's host
+# genome and patterns (the sharded phases), its window (megascan's timing),
+# the counted main path of the baselines (their kernels-line launches)
+NEEDS = {"compare-shard": ("main-stream",), "main-shard": ("main-stream",),
+         "timing": ("main-stream",), "timing-baselines": ("compare-baselines",)}
+
+
+def selected_phases(arg) -> list:
+    """The phases of ``--phases a,b``, with what they need, in run order."""
+    if not arg:
+        return list(PHASES)
+    asked = [p.strip() for p in arg.split(",") if p.strip()]
+    unknown = sorted(set(asked) - set(PHASES))
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; known: {', '.join(PHASES)}")
+    chosen = set(asked)
+    for p in asked:
+        chosen.update(NEEDS.get(p, ()))
+    return [p for p in PHASES if p in chosen]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run (default: all of them); a phase that "
+                         "needs another's result runs it too: " + ", ".join(PHASES))
     # the two-process run of main-shard starts this script twice with these
     ap.add_argument("--shard-child", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--coordinator", help=argparse.SUPPRESS)
@@ -4041,6 +4379,7 @@ def main() -> int:
     args = ap.parse_args()
     if args.shard_child is not None:
         return shard_child(args)
+    run = selected_phases(args.phases)
 
     import numpy as np
     import torch
@@ -4052,158 +4391,204 @@ def main() -> int:
     smi = nvidia_smi()
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-          "nvidia_smi": smi})
+          "nvidia_smi": smi, "phases": run})
 
     t0 = time.perf_counter()
     libs = port.build.build()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": sorted(p.name for p in libs.values())})
 
-    t0 = time.perf_counter()
-    compared = compare_kernels(torch, port, args.seed,
-                               (1, 4095, 4096, 4097, 1_000_003, 64 * MIB), 16 * MIB)
-    emit({"phase": "compare", **compared, "equal": True,
-          "seconds": round(time.perf_counter() - t0, 3)})
-    t0 = time.perf_counter()
-    compared_mp = compare_multipattern(torch, np, port, args.seed)
-    emit({"phase": "compare-multi", **compared_mp, "equal": True,
-          "seconds": round(time.perf_counter() - t0, 3)})
-    compared["max_abs_err"]["multipattern"] = compared_mp["max_abs_err"]
-    t0 = time.perf_counter()
-    compared_ms = compare_megascan(torch, np, port, args.seed)
-    emit({"phase": "compare-stream", **compared_ms, "equal": True,
-          "seconds": round(time.perf_counter() - t0, 3)})
-    compared["max_abs_err"]["megascan"] = compared_ms["max_abs_err"]
-    t0 = time.perf_counter()
-    compared_ax = compare_approx(torch, np, port, args.seed)
-    emit({"phase": "compare-approx", **compared_ax, "equal": True,
-          "seconds": round(time.perf_counter() - t0, 3)})
-    compared["max_abs_err"]["approx"] = compared_ax["max_abs_err"]
-    t0 = time.perf_counter()
-    compared_ac = compare_automaton(torch, np, port, args.seed)
-    emit({"phase": "compare-automaton", **compared_ac, "equal": True,
-          "seconds": round(time.perf_counter() - t0, 3)})
-    compared["max_abs_err"]["acscan"] = compared_ac["max_abs_err"]
+    compared = {"max_abs_err": {}}
+    if "compare" in run:
+        t0 = time.perf_counter()
+        compared = compare_kernels(torch, port, args.seed,
+                                   (1, 4095, 4096, 4097, 1_000_003, 64 * MIB), 16 * MIB)
+        emit({"phase": "compare", **compared, "equal": True,
+              "seconds": round(time.perf_counter() - t0, 3)})
+    for phase, fn, name in (("compare-multi", compare_multipattern, "multipattern"),
+                            ("compare-stream", compare_megascan, "megascan"),
+                            ("compare-approx", compare_approx, "approx"),
+                            ("compare-automaton", compare_automaton, "acscan")):
+        if phase in run:
+            t0 = time.perf_counter()
+            got = fn(torch, np, port, args.seed)
+            emit({"phase": phase, **got, "equal": True,
+                  "seconds": round(time.perf_counter() - t0, 3)})
+            compared["max_abs_err"][name] = got["max_abs_err"]
 
-    launches = main_path(torch, np, port, args.seed, GIB, 256 * MIB)
-    t0 = time.perf_counter()
-    multi = main_multi(torch, np, port, args.seed,
-                       {"genome": 64 * MIB, "english": 256 * MIB, "batch": (4096, 65536),
-                        "mp_batch": (8, 8 * MIB)})
-    emit({"phase": "main-multi", "seconds": round(time.perf_counter() - t0, 3)})
-    launches["multipattern"] = multi["launches"]
-    t0 = time.perf_counter()
-    streamed = main_stream(torch, np, port, args.seed,
-                           {"genome": 4 * GIB, "traced": GIB, "kmismatch": 256 * MIB,
-                            "english": 256 * MIB, "protein": 256 * MIB})
-    emit({"phase": "main-stream", "seconds": round(time.perf_counter() - t0, 3)})
-    launches["megascan"] = streamed["launches"]["megascan"]
-    t0 = time.perf_counter()
-    approx = main_approx(torch, np, port, args.seed,
-                         {"protein": 256 * MIB, "english": 64 * MIB, "batch": (8, 8 * MIB)})
-    emit({"phase": "main-approx", "seconds": round(time.perf_counter() - t0, 3)})
-    launches["approx"] = approx["launches"]
-    t0 = time.perf_counter()
-    dicts = main_dict(torch, np, port, args.seed,
-                      {"text": 256 * MIB, "batch": (4096, 65536), "stream": GIB})
-    emit({"phase": "main-dict", "seconds": round(time.perf_counter() - t0, 3)})
-    t0 = time.perf_counter()
-    served = main_serve(torch, np, port, args.seed, {"text": 256 * MIB})
-    emit({"phase": "main-serve", "seconds": round(time.perf_counter() - t0, 3)})
+    launches = {name: 0 for name in port.wrappers}
+    if "main" in run:
+        launches = main_path(torch, np, port, args.seed, GIB, 256 * MIB)
+    if "main-multi" in run:
+        t0 = time.perf_counter()
+        multi = main_multi(torch, np, port, args.seed,
+                           {"genome": 64 * MIB, "english": 256 * MIB, "batch": (4096, 65536),
+                            "mp_batch": (8, 8 * MIB)})
+        emit({"phase": "main-multi", "seconds": round(time.perf_counter() - t0, 3)})
+        launches["multipattern"] += multi["launches"]
+    streamed = None
+    if "main-stream" in run:
+        t0 = time.perf_counter()
+        streamed = main_stream(torch, np, port, args.seed,
+                               {"genome": 4 * GIB, "traced": GIB, "kmismatch": 256 * MIB,
+                                "english": 256 * MIB, "protein": 256 * MIB})
+        emit({"phase": "main-stream", "seconds": round(time.perf_counter() - t0, 3)})
+        launches["megascan"] += streamed["launches"]["megascan"]
+    if "main-approx" in run:
+        t0 = time.perf_counter()
+        approx = main_approx(torch, np, port, args.seed,
+                             {"protein": 256 * MIB, "english": 64 * MIB, "batch": (8, 8 * MIB)})
+        emit({"phase": "main-approx", "seconds": round(time.perf_counter() - t0, 3)})
+        launches["approx"] += approx["launches"]
     # the main path launches acscan's counts mode (count_automaton)
-    launches["acscan"] = dicts["launches"]["acscan_counts"] + served["acscan_counts_launches"]
-    t0 = time.perf_counter()
-    compared_sh = compare_shard(torch, np, port, args.seed, streamed["host"], streamed["pats"],
-                                {"texts": (40, 203, MIB + 7, 6 * MIB + 13), "chunk": 256 * 1024,
-                                 "positions_max": 2 * MIB, "distributed": 8 * MIB})
-    emit({"phase": "compare-shard", **compared_sh, "equal": True,
-          "seconds": round(time.perf_counter() - t0, 3)})
-    t0 = time.perf_counter()
-    sharded = main_shard(torch, np, port, args.seed, streamed["host"], streamed["pats"],
-                         {"genome": 4 * GIB, "faulted": GIB, "positions": 256 * MIB,
-                          "children": 512 * MIB, "distributed": GIB}, smi)
-    emit({"phase": "main-shard", "launches": sharded["launches"],
-          "seconds": round(time.perf_counter() - t0, 3)})
-    del streamed["host"]
-    # every launch of the sharded path: megascan a count window, multipattern
-    # for the 'b' groups of a positions window, EPSM 8 a distributed count
-    for name, v in sharded["launches"].items():
-        launches["acscan" if name == "acscan_counts" else name] += v
-    t0 = time.perf_counter()
-    compared_lm = compare_lm(torch, np, port, args.seed, {"steps": 8, "moe_layers": 1})
-    emit({"phase": "compare-lm", **compared_lm, "seconds": round(time.perf_counter() - t0, 3)})
-    t0 = time.perf_counter()
-    lm = main_lm(torch, np, port, args.seed,
-                 {"batch": 8, "prompt": 512, "new_tokens": 256, "max_len": 1024})
-    emit({"phase": "main-lm", "seconds": round(time.perf_counter() - t0, 3)})
-    t0 = time.perf_counter()
-    piped = main_pipeline(torch, np, port, args.seed,
-                          {"text": 128 * MIB, "k1_text": 32 * MIB, "dedup_text": 4 * MIB})
-    emit({"phase": "main-pipeline", "launches": piped["launches"],
-          "seconds": round(time.perf_counter() - t0, 3)})
-    # the stop scan's multipattern ('b' stops) and approx (fuzzy stops)
-    # launches; the pipeline's megascan (oversize documents), approx (dense
-    # k-mismatch counts) and acscan (automaton routes)
-    for name, v in lm["launches"].items():
-        launches[name] += v
-    for name, v in piped["launches"].items():
-        if name != "acscan":
+    if "main-dict" in run:
+        t0 = time.perf_counter()
+        dicts = main_dict(torch, np, port, args.seed,
+                          {"text": 256 * MIB, "batch": (4096, 65536), "stream": GIB})
+        emit({"phase": "main-dict", "seconds": round(time.perf_counter() - t0, 3)})
+        launches["acscan"] += dicts["launches"]["acscan_counts"]
+    if "main-serve" in run:
+        t0 = time.perf_counter()
+        served = main_serve(torch, np, port, args.seed, {"text": 256 * MIB})
+        emit({"phase": "main-serve", "seconds": round(time.perf_counter() - t0, 3)})
+        launches["acscan"] += served["acscan_counts_launches"]
+    if "compare-shard" in run:
+        t0 = time.perf_counter()
+        compared_sh = compare_shard(torch, np, port, args.seed, streamed["host"], streamed["pats"],
+                                    {"texts": (40, 203, MIB + 7, 6 * MIB + 13),
+                                     "chunk": 256 * 1024, "positions_max": 2 * MIB,
+                                     "distributed": 8 * MIB})
+        emit({"phase": "compare-shard", **compared_sh, "equal": True,
+              "seconds": round(time.perf_counter() - t0, 3)})
+    if "main-shard" in run:
+        t0 = time.perf_counter()
+        sharded = main_shard(torch, np, port, args.seed, streamed["host"], streamed["pats"],
+                             {"genome": 4 * GIB, "faulted": GIB, "positions": 256 * MIB,
+                              "children": 512 * MIB, "distributed": GIB}, smi)
+        emit({"phase": "main-shard", "launches": sharded["launches"],
+              "seconds": round(time.perf_counter() - t0, 3)})
+        # every launch of the sharded path: megascan a count window, multipattern
+        # for the 'b' groups of a positions window, EPSM 8 a distributed count
+        for name, v in sharded["launches"].items():
             launches["acscan" if name == "acscan_counts" else name] += v
-    t0 = time.perf_counter()
-    compared_tr = compare_train(torch, np, port, args.seed, {"steps": 2, "moe_layers": 1})
-    emit({"phase": "compare-train", **compared_tr, "seconds": round(time.perf_counter() - t0, 3)})
-    t0 = time.perf_counter()
-    trained = main_train(torch, np, port, args.seed,
-                         {"batch": 8, "seq": 1024, "steps": 60, "ckpt_every": 20, "fault_at": 45,
-                          "text": 2 * MIB})
-    emit({"phase": "main-train", "launches": trained["launches"],
-          "seconds": round(time.perf_counter() - t0, 3)})
-    # the training data plane's filter: approx a length group a dispatch
-    # (k = 1), megascan a window of the oversize documents
-    for name in ("approx", "megascan"):
-        launches[name] += trained["launches"][name]
-    t0 = time.perf_counter()
-    compared_rs = compare_recsys(torch, np, port, args.seed, {"batch": 256, "candidates": 4096})
-    emit({"phase": "compare-recsys", **compared_rs, "seconds": round(time.perf_counter() - t0, 3)})
-    t0 = time.perf_counter()
-    reddit = reddit_graph(np, port, args.seed)
-    emit({"phase": "reddit-graph", "nodes": reddit.n_nodes, "edges": reddit.n_edges,
-          "d_feat": int(reddit.feats.shape[1]), "seconds": round(time.perf_counter() - t0, 3)})
-    t0 = time.perf_counter()
-    compared_gnn = compare_gnn(torch, np, port, args.seed, reddit)
-    emit({"phase": "compare-gnn", **compared_gnn, "seconds": round(time.perf_counter() - t0, 3)})
-    t0 = time.perf_counter()
-    main_recsys(torch, np, port, args.seed,
-                {"serve_batch": 512, "serve_calls": 50, "bulk_batch": 262_144, "bulk_calls": 5,
-                 "candidates": 1_000_000,
-                 "train_batch": 65_536, "train_steps": 20})
-    emit({"phase": "main-recsys", "seconds": round(time.perf_counter() - t0, 3)})
-    t0 = time.perf_counter()
-    main_gnn(torch, np, port, args.seed, reddit,
-             {"steps": {"minibatch_lg": 10, "molecule": 20, "full_graph_sm": 20}})
-    emit({"phase": "main-gnn", "seconds": round(time.perf_counter() - t0, 3)})
+    if streamed is not None:
+        del streamed["host"]
+    if "compare-lm" in run:
+        t0 = time.perf_counter()
+        compared_lm = compare_lm(torch, np, port, args.seed, {"steps": 8, "moe_layers": 1})
+        emit({"phase": "compare-lm", **compared_lm,
+              "seconds": round(time.perf_counter() - t0, 3)})
+    if "main-lm" in run:
+        t0 = time.perf_counter()
+        lm = main_lm(torch, np, port, args.seed,
+                     {"batch": 8, "prompt": 512, "new_tokens": 256, "max_len": 1024})
+        emit({"phase": "main-lm", "seconds": round(time.perf_counter() - t0, 3)})
+        # the stop scan's multipattern ('b' stops) and approx (fuzzy stops)
+        for name, v in lm["launches"].items():
+            launches[name] += v
+    if "main-pipeline" in run:
+        t0 = time.perf_counter()
+        piped = main_pipeline(torch, np, port, args.seed,
+                              {"text": 128 * MIB, "k1_text": 32 * MIB, "dedup_text": 4 * MIB})
+        emit({"phase": "main-pipeline", "launches": piped["launches"],
+              "seconds": round(time.perf_counter() - t0, 3)})
+        # the pipeline's megascan (oversize documents), approx (dense
+        # k-mismatch counts) and acscan (automaton routes)
+        for name, v in piped["launches"].items():
+            if name != "acscan":
+                launches["acscan" if name == "acscan_counts" else name] += v
+    if "compare-train" in run:
+        t0 = time.perf_counter()
+        compared_tr = compare_train(torch, np, port, args.seed, {"steps": 2, "moe_layers": 1})
+        emit({"phase": "compare-train", **compared_tr,
+              "seconds": round(time.perf_counter() - t0, 3)})
+    if "main-train" in run:
+        t0 = time.perf_counter()
+        trained = main_train(torch, np, port, args.seed,
+                             {"batch": 8, "seq": 1024, "steps": 60, "ckpt_every": 20,
+                              "fault_at": 45, "text": 2 * MIB})
+        emit({"phase": "main-train", "launches": trained["launches"],
+              "seconds": round(time.perf_counter() - t0, 3)})
+        # the training data plane's filter: approx a length group a dispatch
+        # (k = 1), megascan a window of the oversize documents
+        for name in ("approx", "megascan"):
+            launches[name] += trained["launches"][name]
+    if "compare-recsys" in run:
+        t0 = time.perf_counter()
+        compared_rs = compare_recsys(torch, np, port, args.seed,
+                                     {"batch": 256, "candidates": 4096})
+        emit({"phase": "compare-recsys", **compared_rs,
+              "seconds": round(time.perf_counter() - t0, 3)})
+    reddit = None
+    if "compare-gnn" in run or "main-gnn" in run:
+        t0 = time.perf_counter()
+        reddit = reddit_graph(np, port, args.seed)
+        emit({"phase": "reddit-graph", "nodes": reddit.n_nodes, "edges": reddit.n_edges,
+              "d_feat": int(reddit.feats.shape[1]),
+              "seconds": round(time.perf_counter() - t0, 3)})
+    if "compare-gnn" in run:
+        t0 = time.perf_counter()
+        compared_gnn = compare_gnn(torch, np, port, args.seed, reddit)
+        emit({"phase": "compare-gnn", **compared_gnn,
+              "seconds": round(time.perf_counter() - t0, 3)})
+    if "main-recsys" in run:
+        t0 = time.perf_counter()
+        main_recsys(torch, np, port, args.seed,
+                    {"serve_batch": 512, "serve_calls": 50, "bulk_batch": 262_144,
+                     "bulk_calls": 5, "candidates": 1_000_000,
+                     "train_batch": 65_536, "train_steps": 20})
+        emit({"phase": "main-recsys", "seconds": round(time.perf_counter() - t0, 3)})
+    if "main-gnn" in run:
+        t0 = time.perf_counter()
+        main_gnn(torch, np, port, args.seed, reddit,
+                 {"steps": {"minibatch_lg": 10, "molecule": 20, "full_graph_sm": 20}})
+        emit({"phase": "main-gnn", "seconds": round(time.perf_counter() - t0, 3)})
     del reddit
-    rows = timing(torch, port, args.seed, GIB)
-    rows["multipattern"] = timing_multipattern(torch, port, args.seed, 8, 8 * MIB, 32)
-    rows.update(timing_stream_approx(torch, np, port, args.seed, 64 * MIB,
-                                     streamed["window_bytes"], (8, 8 * MIB)))
-    rows["acscan"] = timing_acscan(torch, np, port, args.seed, 256 * MIB)
+    if "fault7" in run:
+        t0 = time.perf_counter()
+        fault7_case(torch, np, port, args.seed, 4 * MIB)
+        emit({"phase": "fault7", "seconds": round(time.perf_counter() - t0, 3)})
+    if "compare-baselines" in run:
+        t0 = time.perf_counter()
+        compared_bl = compare_baselines(torch, np, port, args.seed, {"n": 4 * MIB, "patterns": 2})
+        emit({"phase": "compare-baselines", "seconds": round(time.perf_counter() - t0, 3)})
+        compared["max_abs_err"].update(compared_bl["max_abs_err"])
+        # the baselines' main path: their entry points on the three corpora
+        for name in BASELINE_LOOPS:
+            launches[name] += compared_bl["launches"][name]
+    rows = {}
+    if "timing-baselines" in run:
+        t0 = time.perf_counter()
+        rows.update(timing_baselines(torch, np, port, args.seed, {"n": 4 * MIB}))
+        emit({"phase": "timing-baselines", "seconds": round(time.perf_counter() - t0, 3)})
+    if "timing" in run:
+        rows.update(timing(torch, port, args.seed, GIB))
+        rows["multipattern"] = timing_multipattern(torch, port, args.seed, 8, 8 * MIB, 32)
+        rows.update(timing_stream_approx(torch, np, port, args.seed, 64 * MIB,
+                                         streamed["window_bytes"], (8, 8 * MIB)))
+        rows["acscan"] = timing_acscan(torch, np, port, args.seed, 256 * MIB)
 
+    # one entry a kernel whose timing ran (every kernel in a bare run)
     kernels = []
     for name, (source, replaces) in KERNEL_SOURCES.items():
+        if name not in rows:
+            continue
         row = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name],
-                        "max_abs_err": compared["max_abs_err"][name], "match": True,
+                        "max_abs_err": compared["max_abs_err"].get(name), "match": True,
                         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": None, **({"mode": row["mode"]} if "mode" in row else {})})
+    if run == list(PHASES):
+        check(len(kernels) == len(KERNEL_SOURCES), f"{len(kernels)} kernels timed")
+        check(all(k["launches"] > 0 for k in kernels),
+              f"a kernel never launched on its path: {[k['name'] for k in kernels if not k['launches']]}")
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -3,9 +3,10 @@
 Ported: ``packing``, the single-pattern EPSM path (``epsm``), the shared-text
 batched engine (``engine``, k-mismatch routes and the dictionary-scale
 automaton route included), the packed Aho-Corasick automaton
-(``automaton``), the multi-pattern API over the engine (``multipattern``)
-and the bounded-memory streaming scan (``stream``).  Shards are still to
-come (ROADMAP.md queue 1).
+(``automaton``), the multi-pattern API over the engine (``multipattern``),
+the bounded-memory streaming scan (``stream``), sharded streaming
+(``shard_stream``, ``distributed``, ``remote_source``) and the paper's
+baselines (``baselines``).
 """
 
 from repro_torch.core.epsm import (
@@ -47,8 +48,10 @@ from repro_torch.core.shard_stream import (
     shard_stream_count,
 )
 from repro_torch.core.remote_source import FakeObjectStore, RemoteRangeReader
+from repro_torch.core.baselines import BASELINES, naive_np
 
 __all__ = [
+    "BASELINES",
     "Compressed",
     "EPSMA_MAX",
     "EPSMB_MAX",
@@ -79,6 +82,7 @@ __all__ = [
     "find_multi",
     "find_stream",
     "match_many",
+    "naive_np",
     "positions",
     "select_algo",
     "select_algo_tuned",

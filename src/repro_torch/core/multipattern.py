@@ -136,9 +136,14 @@ class PatternSet:
 
         The scanner counts with the megascan kernel on the card, over the
         set recompiled as plans it takes (``megascan_plans``: flat groups
-        of at most 512 patterns); a set it still cannot take (a pattern
+        of at most 512 patterns).  A set megascan still cannot take (an
+        EPSMc pattern whose stride plus length passes its tile, a pattern
         over 4093 bytes, k > 127, more counters than shared memory holds)
-        raises there rather than scan in plain PyTorch."""
+        streams through the port's other kernels instead: ``StreamScanner``
+        logs a ``kernel_fallback`` event and counts each window with one
+        acscan counts launch over the set's Aho-Corasick automaton (the
+        approx kernel for k > 0), where the reference's scanner counts such
+        plans with its engine."""
         sc = self._scanners.get(chunk_bytes)
         if sc is None:
             from repro_torch.core.stream import StreamScanner
@@ -147,11 +152,5 @@ class PatternSet:
             if self._stream_plans is None:
                 self._stream_plans = megascan_plans(self.plans)
             sc = StreamScanner(self._stream_plans, chunk_bytes, k=self.k)
-            if sc.device.type == "cuda" and sc.spec is None:
-                raise ValueError(
-                    "contains_any_stream: the megascan kernel cannot take this pattern set "
-                    "(a pattern over 4093 bytes, k > 127, or more patterns than its shared "
-                    "memory counts)"
-                )
             self._scanners[chunk_bytes] = sc
         return sc.contains_any(source)

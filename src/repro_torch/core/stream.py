@@ -27,7 +27,9 @@ buffer is refilled only once the CUDA event recorded behind its last copy
 has completed, so window i+1 is read, decompressed and copied while window
 i is scanned.  On the kernel path (the default on the card for an eligible
 plan set) every chunk is one ``megascan`` launch that adds its counts into
-one device int32 accumulator, read by the host only at the end.  The fused
+one device int32 accumulator, read by the host only at the end; a set
+megascan refuses takes one acscan counts launch a chunk over its whole
+dictionary (approx launches for k-mismatch groups).  The fused
 pure-PyTorch path syncs once or more per chunk: the engine compares
 candidate counts with their budgets on the host (core/engine.py).
 
@@ -303,6 +305,44 @@ def _fused_count_step(counts, window, length, prev_ov, plans, *, ov: int, k, sha
     return counts
 
 
+def _kernel_count_step(counts, window, length, prev_ov, plans, *, auto, k):
+    """One chunk of a set megascan refuses, counted by the port's other
+    kernels with the seam gate ``end_min=prev_ov``: the exact groups by one
+    Aho-Corasick counts launch over their whole dictionary (``acscan``
+    through ``engine._automaton_counts``; ``auto`` from
+    ``_exact_automaton``), the k-mismatch groups, and the exact ones when no
+    automaton fits its caps, by the ``approx`` kernel (k = 0 is exact), a
+    slice of patterns at a time.  Adds into ``counts``."""
+    from repro_torch.approx import counting
+
+    index = _index(window, length)
+    if auto is not None:
+        exact = engine._automaton_counts(index, auto, int(prev_ov))[0]
+    col = a_col = 0
+    for p in plans:
+        P, kk = p.n_patterns, engine._effective_k(p, k)
+        if kk == 0 and auto is not None:
+            got = exact[a_col : a_col + P]
+            a_col += P
+        else:
+            got = engine._dense_count(
+                index, p, lambda i, q, e, kk=kk: counting.match_group_approx(i, q, kk, e),
+                int(prev_ov))[0]
+        counts[col : col + P] += got
+        col += P
+    return counts
+
+
+def _exact_automaton(plans: Sequence[PatternPlan], k):
+    """The Aho-Corasick automaton of the exact groups' patterns in plan
+    order (its columns are theirs in ``_kernel_count_step``), or None with
+    no exact group or when its caps refuse it."""
+    from repro_torch.core.automaton import compile_automaton
+
+    rows = [r for p in plans if engine._effective_k(p, k) == 0 for r in p.patterns.cpu().numpy()]
+    return compile_automaton(rows, device=plans[0].device) if rows else None
+
+
 def _count_step(counts, window, length, prev_ov, plans, *, ov: int, k, shared: bool = True):
     """Reference two-pass chunk step: full-window counts minus
     overlap-prefix counts.  Kept as the fallback and the oracle the fused
@@ -362,9 +402,11 @@ class StreamScanner:
     launch per chunk adding into one device accumulator, no host read until
     the end.  None (the default) takes it on a CUDA device and not on the
     CPU; True takes it on the CPU too (its plain version there), False pins
-    the pure-PyTorch steps.  An ineligible set is a static decision, logged
-    as a ``kernel_fallback`` event, and runs the fused pure-PyTorch path,
-    never different results; that path syncs per chunk (its routes compare
+    the pure-PyTorch steps.  A set megascan refuses is a static decision,
+    logged as a ``kernel_fallback`` event: each chunk is then counted by the
+    acscan and approx kernels (``_kernel_count_step``; their plain versions
+    on the CPU), never different results.  Without the kernel the fused
+    pure-PyTorch path runs, which syncs per chunk (its routes compare
     candidate counts with budgets on the host).  ``fused`` (default True)
     runs those steps with the seam correction fused into the matchers;
     False keeps the reference two-pass step, bit-identical.
@@ -419,6 +461,8 @@ class StreamScanner:
         # shared=False pins the per-group engine path (count_many shared=False)
         self.shared = bool(shared)
         self.spec = None
+        self._kernel_steps = False  # megascan refused: _kernel_count_step
+        self._auto = None  # its automaton of the exact groups
         if use_kernel is None:
             use_kernel = self.device.type == "cuda"
         if use_kernel:
@@ -426,10 +470,12 @@ class StreamScanner:
 
             self.spec = build_mega_spec(self.plans, k=k)
             if self.spec is None:
+                self._kernel_steps = True
+                self._auto = _exact_automaton(self.plans, k)
                 self.rec.event(
                     "kernel_fallback", lane=self.lane,
-                    reason="megascan ineligible for this plan set; "
-                    "using the pure-PyTorch fused path",
+                    reason="megascan ineligible for this plan set; counting each window "
+                    "with the acscan and approx kernels",
                 )
         # on the card the first count dispatch takes the megascan tables and
         # the scanner holds them for its whole life, so a launch never reads
@@ -600,6 +646,9 @@ class StreamScanner:
                     self._held.append(kernel_entry(self.plans, self.spec))
                 megascan_count_window(window_dev, self.plans, self.spec, length=int(length),
                                       prev_ov=int(prev_ov), out=counts)
+            elif self._kernel_steps:
+                _kernel_count_step(counts, window_dev, length, prev_ov, self.plans,
+                                   auto=self._auto, k=self.k)
             else:
                 step = _fused_count_step if self.fused else _count_step
                 step(counts, window_dev, length, prev_ov, self.plans,

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("epsma", "epsmb", "epsmc", "multipattern", "megascan", "approx", "acscan")
+KERNELS = ("epsma", "epsmb", "epsmc", "multipattern", "megascan", "approx", "acscan",
+           "baselines")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

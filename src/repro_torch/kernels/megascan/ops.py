@@ -4,8 +4,8 @@ rule, and the op that turns (window, plans, k, prev_ov) into one launch.
 ``build_mega_spec`` walks a plan set ONCE and decides, per length group,
 which in-kernel matcher answers it ('a'/'b'/'c' exact, 'x' k-mismatch) and
 whether the whole set is eligible for ``csrc/megascan.cu``.  Ineligible sets
-return None and the caller (core/stream.py) keeps the pure-PyTorch fused
-path: a static decision, logged, never a different result.  A failed build
+return None and the caller (core/stream.py) counts with the acscan and
+approx kernels instead: a static decision, logged, never a different result.  A failed build
 or launch raises; it is never a reason to fall back.
 """
 

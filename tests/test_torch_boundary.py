@@ -53,7 +53,10 @@ def test_import_leaves_jax_out():
         "repro_torch.train.loop, repro_torch.launch.train, repro_torch.models.embedding, "
         "repro_torch.models.recsys, repro_torch.models.gnn, repro_torch.data.graph, "
         "repro_torch.data.recsys_data, repro_torch.configs.din, repro_torch.configs.dien, "
-        "repro_torch.configs.bst, repro_torch.configs.dcn_v2, repro_torch.configs.gatedgcn; "
+        "repro_torch.configs.bst, repro_torch.configs.dcn_v2, repro_torch.configs.gatedgcn, "
+        "repro_torch.core.baselines, repro_torch.kernels.baselines, "
+        "repro_torch.kernels.baselines.ops, repro_torch.kernels.baselines.ref, "
+        "repro_torch.kernels.baselines.baselines; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]; "
         "assert not bad, bad"
     )

@@ -369,6 +369,98 @@ def test_patternset_contains_any_stream(rng):
     assert len(drained) < len(range(0, len(early), 512))
 
 
+def test_fault7_contains_any_stream_answers_where_megascan_refuses(rng, monkeypatch):
+    """ROADMAP §3 fault 7: a set megascan cannot take (one 2056-byte EPSMc
+    pattern) streams on the card with one acscan counts launch a window over
+    the set's automaton, and gives the reference's verdict (equal): any
+    occurrence of any pattern by the reference's oracle ``naive_np`` (the
+    reference's own PatternSet takes ~160 s to compile a 2056-byte plan on a
+    CPU; it answered True on such a text when the fault was recorded).  A
+    spy builds each scanner as on the card (use_kernel=True, a recorder) and
+    hands back a view whose device reads cuda while it counts here; the
+    acscan op (the kernel on a CUDA tensor, its plain version here) must
+    count every window, and the approx route none."""
+    from repro.core.baselines import naive_np
+    from repro_torch.approx import counting
+    from repro_torch.kernels.acscan import ops as acscan_ops
+
+    text = make_text(rng, 16_384, 4)
+    pats = [text[1000:3056].copy(), text[50:58].copy()]
+    absent = (make_text(rng, 16_384, 4) + 4).astype(np.uint8)  # bytes 4..7: no occurrence
+    planted = absent.copy()
+    planted[7_000 : 7_000 + 2056] = pats[0]  # across the first 8 KiB seam
+    built, real = [], S.StreamScanner
+
+    class OnCard:
+        device = torch.device("cuda")
+
+        def __init__(self, sc):
+            self._sc = sc
+
+        def __getattr__(self, name):
+            return getattr(self._sc, name)
+
+    def on_card(plans, chunk_bytes, **kw):
+        rec = Recorder(enabled=True)
+        sc = real(plans, chunk_bytes, use_kernel=True, recorder=rec, **kw)
+        built.append((sc, rec))
+        return OnCard(sc)
+
+    calls = {"acscan": 0, "approx": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(S, "StreamScanner", on_card)
+    monkeypatch.setattr(acscan_ops, "acscan_counts", spy("acscan", acscan_ops.acscan_counts))
+    monkeypatch.setattr(counting, "match_group_approx",
+                        spy("approx", counting.match_group_approx))
+    got = Pmp.PatternSet(pats, device=CPU)
+    docs = (text, absent, planted)
+    verdicts = [got.contains_any_stream(doc, chunk_bytes=8192) for doc in docs]
+    assert verdicts == [any(naive_np(doc, p).any() for p in pats) for doc in docs]
+    assert verdicts == [True, False, True]
+    (sc, rec), = built  # one scanner, cached for the chunk size
+    assert sc.spec is None and rec.events_named("kernel_fallback")
+    assert calls == {"acscan": sc.dispatch_count, "approx": 0} and sc.dispatch_count > 0
+
+
+@pytest.mark.parametrize("variant", ["flat", "bucketed", "no_automaton", "mixed_k"])
+def test_kernel_route_counts_as_the_fused_path(rng, monkeypatch, variant):
+    """A set megascan refuses, scanned with use_kernel=True, counts each
+    window on the acscan and approx ops (their plain versions here) and
+    equals the fused PyTorch path (equal).  Every group holds more than 512
+    patterns.  Variants: flat groups, a bucketed dictionary (CSR slots and
+    the engine's own automaton), the automaton's caps refused (every exact
+    group on the approx op at k = 0), and exact groups beside a k = 1
+    group."""
+    import repro_torch.core.automaton as A
+
+    text = make_text(rng, 12_000, 4)
+    pats = [text[s : s + m].copy() for m in (5, 9, 12) for s in rng.randint(0, 11_900, 600)]
+    if variant == "bucketed":
+        plans = E.compile_patterns(pats, bucket=True, automaton=True, device=CPU)
+    else:
+        plans = E.compile_patterns(pats, bucket=False, automaton=False, device=CPU)
+        wide = [text[s : s + 32].copy() for s in range(0, 11_900, 22)]  # 541 patterns
+        plans = E.compile_patterns(wide, bucket=False, automaton=False, device=CPU) + plans
+    if variant == "mixed_k":
+        plans = plans + E.compile_patterns([text[900:910].copy(), text[5:15].copy()], k=1,
+                                           device=CPU)
+    if variant == "no_automaton":
+        monkeypatch.setattr(A, "compile_automaton", lambda *a, **kw: None)
+    rec = Recorder(enabled=True)
+    sc = StreamScanner(plans, 2048, use_kernel=True, recorder=rec)
+    assert sc.spec is None and sc._kernel_steps and len(rec.events_named("kernel_fallback")) == 1
+    assert (sc._auto is None) == (variant == "no_automaton")
+    want = StreamScanner(plans, 2048, use_kernel=False).count_many(text)
+    assert want.sum() > 0
+    np.testing.assert_array_equal(sc.count_many(text), want)
+
+
 @pytest.mark.parametrize("k", [0, 1])
 def test_patternset_stream_plans_take_megascan(rng, k):
     """A dictionary-scale set (bucketed EPSMb and EPSMc groups, one group

@@ -143,7 +143,8 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 width cut to 1 layer (1.56 B parameters; one row of one
                 repeated byte, so tokens drop past capacity on both sides,
                 the dispatch equal), B = 2, S = 128: train_loss and every
-                gradient leaf with remat on and off, one AdamW update from
+                gradient leaf with remat on and off (the CPU's side runs
+                once: remat does not change its answer), one AdamW update from
                 the CPU's gradients, a 2-step make_train_step loss
                 trajectory, each within TRAIN_TOL or ADAM_TOL of the CPU's;
                 smollm's grad_accum = 2 against 1 on the card (the
@@ -163,6 +164,29 @@ Phases, one JSON line each (more for main-multi and main-stream):
                 then launch.train --reduced (30 steps, checkpoints every 10)
                 and launch.serve --ckpt-dir restoring its step 30, the
                 served parameters equal to the checkpoint's;
+  main-dist     the multi-device layer on a (1, 1) ("data", "model") mesh of
+                this process (a one-rank group: NCCL, gloo for host
+                tensors): launch.train's step at full smollm-135m width in
+                bfloat16, B = 8, S = 1024, 10 steps over the launcher's
+                pipeline (its launches read: none, the engine's sparse
+                route), against make_train_step
+                from the same seed and batches (losses and state bit-equal,
+                or the difference printed and held to TRAIN_TOL), step ms
+                of each; every arch's spec tables on the mesh, smollm-135m,
+                DCN-v2 and GatedGCN placed (each local shard the whole
+                tensor); quantized_psum of smollm's float32 gradient tree
+                (error under 1e-2 of a leaf's max, reconstruction within
+                1e-6, equal to the CPU's run), its ms; the all-to-all
+                exchange on DCN-v2's 10 M-row table with uniform, Zipf (1.3)
+                and single ids at capacity factors 2 and 0.5 (each lookup
+                equal to table[ids], both paths counted), ms a path; the
+                mesh run's state saved and restored onto the mesh
+                (bit-equal, s); two children of this script in one gloo
+                group on the card (compression against the same sum formed
+                here, the exchange over a table axis of two, 3 launcher
+                steps of a reduced LM within DIST_TOL of the one-rank run)
+                whose CPU zero_dp checkpoint restores onto the card's mesh
+                bit for bit;
   compare-recsys DIN, DIEN, BST and DCN-v2 at their published widths (DCN-v2
                 with its full dcn_default_vocabs tables, 577 M parameters)
                 on the card against their own run on the CPU from one
@@ -254,6 +278,7 @@ import gzip
 import io
 import json
 import logging
+import os
 import shutil
 import statistics
 import subprocess
@@ -373,6 +398,7 @@ class Port:
         from repro_torch.core import baselines
         from repro_torch.kernels.baselines import baselines as bl_kernel
         from repro_torch.kernels.baselines import ref as bl_plain
+        from repro_torch.dist import compat, compression, embedding_exchange
 
         self.epsm, self.corpus, self.build = epsm, corpus, _build
         self.engine, self.mp, self.mp_ops = engine, multipattern, mp_ops
@@ -394,6 +420,7 @@ class Port:
         self.launch_train, self.launch_serve = launch_train, launch_serve
         self.recsys, self.recsys_data, self.gnn, self.graph_data = recsys, recsys_data, gnn, graph_data
         self.baselines, self.bl_plain = baselines, bl_plain
+        self.compat, self.compression, self.exchange = compat, compression, embedding_exchange
         self.wrappers = {"epsma": epsma_cuda, "epsmb": epsmb_cuda, "epsmc": epsmc_cuda,
                          "multipattern": multipattern_cuda, "megascan": megascan_cuda,
                          "approx": approx_cuda, "acscan": acscan_cuda,
@@ -3329,11 +3356,14 @@ def same_bits(torch, a, b, what: str) -> int:
 
 def train_compare_one(torch, np, port: Port, label: str, cfg, batch, seed: int,
                       traj_steps: int, accum: bool) -> dict:
-    """train_loss and every gradient leaf (remat on and off), one AdamW
-    update from the CPU's gradients and a traj_steps-step make_train_step
-    loss trajectory of one model on the card and on the CPU from the same
-    parameters (drawn on the card from `seed`, copied to the host); with
-    `accum`, grad_accum = 2 against 1 on the card."""
+    """train_loss and every gradient leaf (remat on and off on the card,
+    both held against one CPU run: remat recomputes the same float32 ops,
+    so the CPU's answer is the same either way), one AdamW update from the
+    CPU's gradients and a traj_steps-step make_train_step loss trajectory
+    of one model on the card and on the CPU from the same parameters (drawn
+    on the card from `seed`, copied to the host); with `accum`,
+    grad_accum = 2 against 1 on the card.  `cpu_seconds` is the CPU side's
+    share of the row's time."""
     tf, loop, opt, tree_map = port.tf, port.loop, port.opt, port.lm_common.tree_map
     t0 = time.perf_counter()
     params = tf.init_params(torch.Generator(device=DEVICE).manual_seed(seed), cfg, device=DEVICE)
@@ -3342,21 +3372,18 @@ def train_compare_one(torch, np, port: Port, label: str, cfg, batch, seed: int,
     hb = {k: torch.from_numpy(v) for k, v in batch.items()}
     B, S = batch["tokens"].shape
     row = {"model": label, "params": port.lm_common.param_count(params), "batch": B, "seq": S}
-    errs, losses = {}, {}
-    grads = None
+    errs = {}
+    tc = time.perf_counter()
+    lh, grads = loop.value_and_grad(lambda p, b: tf.train_loss(p, cfg, b), host, hb)
+    cpu_s = time.perf_counter() - tc
     for remat in (True, False):
         c = dataclasses.replace(cfg, remat=remat)
         fn = lambda p, b, _c=c: tf.train_loss(p, _c, b)
         tag = "remat_on" if remat else "remat_off"
         lc, gc = loop.value_and_grad(fn, params, cb)
-        lh, gh = loop.value_and_grad(fn, host, hb)
         errs[f"loss_{tag}"] = held(torch, lc, lh, f"{label} loss ({tag})", TRAIN_TOL)
-        errs[f"grads_{tag}"] = tree_err(torch, gc, gh, f"{label} grad ({tag})", TRAIN_TOL)
-        losses[tag] = float(lh)
+        errs[f"grads_{tag}"] = tree_err(torch, gc, grads, f"{label} grad ({tag})", TRAIN_TOL)
         del gc
-        if grads is None:
-            grads = gh
-        del gh
     if cfg.is_moe:
         tok = cb["tokens"]
         dc = moe_layer0_dispatch(torch, port, params, cfg, tok)
@@ -3370,7 +3397,9 @@ def train_compare_one(torch, np, port: Port, label: str, cfg, batch, seed: int,
     g_card = tree_map(lambda t: t.to(DEVICE), grads)
     pc, sc, mc = opt.adamw_update(g_card, opt.adamw_init(params), params, ocfg)
     del g_card
+    tc = time.perf_counter()
     ph, sh, mh = opt.adamw_update(grads, opt.adamw_init(host), host, ocfg)
+    cpu_s += time.perf_counter() - tc
     del grads
     check(float(mc["lr"]) == float(mh["lr"]), f"{label}: AdamW lr differs")
     errs["adamw_grad_norm"] = held(torch, mc["grad_norm"], mh["grad_norm"],
@@ -3378,20 +3407,26 @@ def train_compare_one(torch, np, port: Port, label: str, cfg, batch, seed: int,
     errs["adamw_params"] = tree_err(torch, pc, ph, f"{label} AdamW params", ADAM_TOL)
     errs["adamw_m"] = tree_err(torch, sc.m, sh.m, f"{label} AdamW m", ADAM_TOL)
     errs["adamw_v"] = tree_err(torch, sc.v, sh.v, f"{label} AdamW v", ADAM_TOL)
-    del pc, sc, ph, sh
-    # the loss trajectory of traj_steps train steps on one batch
+    del pc, sc, host
+    # the loss trajectory of traj_steps train steps on one batch; on the CPU
+    # the first step (value_and_grad, then adamw_update: make_train_step at
+    # grad_accum 1) is the update above, so its side goes on from there
     step_fn = loop.make_train_step(lambda p, b: tf.train_loss(p, cfg, b), ocfg)
     traj = {}
-    for side, p, b in (("card", params, cb), ("cpu", host, hb)):
-        st, traj[side] = opt.adamw_init(p), []
-        for _ in range(traj_steps):
+    for side, p, st, done, b in (("card", params, opt.adamw_init(params), [], cb),
+                                 ("cpu", ph, sh, [float(lh)], hb)):
+        tc = time.perf_counter()
+        traj[side] = done
+        for _ in range(traj_steps - len(done)):
             p, st, m = step_fn(p, st, b)
             traj[side].append(float(m["loss"]))
-        del p, st, m
+        del p, st
+        if side == "cpu":
+            cpu_s += time.perf_counter() - tc
+    del ph, sh
     errs["trajectory"] = max(abs(a - b) / abs(b) for a, b in zip(traj["card"], traj["cpu"]))
     check(errs["trajectory"] <= TRAIN_TOL,
           f"{label}: loss trajectory {traj['card']} vs {traj['cpu']} > {TRAIN_TOL}")
-    del host
     if accum:
         # grad_accum = 2 against 1 on the card: the gradients each step hands
         # to adamw_update (the mean of the microbatches' against the whole
@@ -3425,8 +3460,8 @@ def train_compare_one(torch, np, port: Port, label: str, cfg, batch, seed: int,
         del p1, p2, st, seen
     del params
     torch.cuda.empty_cache()
-    return {**row, "max_rel_err": errs, "loss": losses, "trajectory": traj,
-            "seconds": round(time.perf_counter() - t0, 3)}
+    return {**row, "max_rel_err": errs, "loss_cpu": float(lh), "trajectory": traj,
+            "seconds": round(time.perf_counter() - t0, 3), "cpu_seconds": round(cpu_s, 3)}
 
 
 def compare_train(torch, np, port: Port, seed: int, sizes: dict) -> dict:
@@ -4339,11 +4374,468 @@ def timing_baselines(torch, np, port: Port, seed: int, sizes: dict) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer (main-dist)
+# ---------------------------------------------------------------------------
+
+# main-dist's two children share the one card under gloo, which carries CUDA
+# tensors for all_reduce, all_gather and all_to_all_single on the H100
+# machine (torch 2.11); NCCL refuses two ranks on one card
+DIST_CHILD_TIMEOUT_S = 240
+# the children's reduced LM run and the one-rank run held against it
+DIST_SMALL = {"arch": "smollm-135m", "batch": 4, "seq": 64, "steps": 3}
+DIST_TOL = 1e-5  # two ranks against one: a mean of two row-halves in float32
+# the children's exchange: a table of V rows, n ids
+DIST_CHILD_TABLE = (1 << 20, 16)
+DIST_CHILD_IDS = 65_536
+
+
+def reduced_lm(port: Port):
+    """The launcher's --reduced smollm-135m at DIST_SMALL's sequence."""
+    seq = DIST_SMALL["seq"]
+    return dataclasses.replace(port.configs.reduced_config(DIST_SMALL["arch"]),
+                               vocab=port.pipeline.VOCAB, q_chunk=seq, kv_chunk=seq, ce_chunk=seq)
+
+
+def launcher_run(torch, port: Port, cfg, mesh, dev: str, batches, strategy: str = "tp_sp"):
+    """launch.train's step over ``mesh`` from its seed-0 state, one batch a
+    step: ((params, opt_state) as DTensors, losses, fenced ms a step)."""
+    lt = port.launch_train
+    B, S = batches[0]["tokens"].shape
+    ocfg = port.opt.AdamWConfig(peak_lr=3e-3, warmup_steps=20, total_steps=len(batches))
+    step, pspecs = lt.make_step(cfg, mesh, B, S, ocfg, strategy)
+    params, state = lt.init_state(cfg, mesh, pspecs, torch.device(dev))
+    losses, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, port.loop.batch_to(b, dev))
+        losses.append(float(m["loss"]))  # a sync
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return (params, state), losses, ms
+
+
+def whole_state(port: Port, state):
+    whole = port.loop.whole
+    return port.lm_common.tree_map(whole, state[0]), type(state[1])(
+        *port.lm_common.tree_map(whole, tuple(state[1])))
+
+
+def rank_grads(torch, rank: int):
+    """Rank ``rank``'s gradient-like leaves for the children's compression."""
+    gen = torch.Generator(device=DEVICE).manual_seed(100 + rank)
+    return {"w": torch.randn(1024, 256, generator=gen, device=DEVICE),
+            "b": torch.randn(4096, generator=gen, device=DEVICE) * 1e-3}
+
+
+def start_dist_children(work: Path) -> tuple:
+    """Two children of this script, one gloo group on 127.0.0.1 (torchrun's
+    environment), both on the one card."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_no = s.getsockname()[1]
+    logs, procs = [], []
+    for rank in range(2):
+        env = {**os.environ, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port_no),
+               "WORLD_SIZE": "2", "RANK": str(rank), "LOCAL_RANK": str(rank)}
+        logs.append(open(work / f"rank{rank}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child", str(rank),
+             "--child-dir", str(work)], env=env, stdout=logs[rank], stderr=subprocess.STDOUT))
+    return procs, logs
+
+
+def wait_children(procs, logs, work: Path, deadline: float) -> None:
+    """Wait for the children; one that fails or outlives the deadline fails
+    the phase, and none outlives this call."""
+    try:
+        for rank, proc in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            log = (work / f"rank{rank}.log").read_text()[-4000:]
+            check(rc == 0, f"dist child {rank} exited {rc} (None: timed out): {log}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+
+
+def dist_child(args) -> int:
+    """One rank of main-dist's two-rank run, both ranks on the one card in
+    one gloo group: a reduced LM through the launcher's step on a (2, 1)
+    CPU mesh under zero_dp, its checkpoint written by rank 0; then on the
+    card quantized_psum over "data", the exchange over a (1, 2) mesh (both
+    paths) and the launcher's step on a (2, 1) card mesh."""
+    import numpy as np
+    import torch
+
+    port = Port()
+    work = Path(args.child_dir)
+    compat, lt = port.compat, port.launch_train
+    rank, world = compat.init_process_group(DEVICE, backend="gloo")
+    check((rank, world) == (args.dist_child, 2), f"dist child joined as {(rank, world)}")
+    z = np.load(work / "batches.npz")
+    batches = [{"tokens": z[f"tokens{i}"], "targets": z[f"targets{i}"]}
+               for i in range(DIST_SMALL["steps"])]
+    cfg = reduced_lm(port)
+    names = ("data", "model")
+    keep = {}
+    # the CPU run under zero_dp (parameters and moments sharded over data)
+    cpu_mesh = compat.make_mesh((2, 1), names, device="cpu")
+    state, losses, _ = launcher_run(torch, port, cfg, cpu_mesh, "cpu", batches, "zero_dp")
+    port.ckpt.save(state, work / "ckpt", DIST_SMALL["steps"])
+    for path, leaf in port.ckpt._flatten(whole_state(port, state)):  # gathers: every rank
+        t = torch.stack(leaf) if isinstance(leaf, list) else leaf
+        keep[f"ckpt/{port.ckpt._name(path)}"] = t.float().numpy()
+    keep["cpu_losses"] = np.asarray(losses)
+    # on the card: int8 compression over the data axis of two ranks
+    mesh = compat.make_mesh((2, 1), names, device=DEVICE)
+    g = rank_grads(torch, rank)
+    run = compat.shard_map(lambda g, r: port.compression.quantized_psum(g, r, "data"), mesh=mesh,
+                           in_specs=(compat.P(), compat.P()), out_specs=(compat.P(), compat.P()))
+    out, res = run(g, port.compression.zeros_residuals(g))
+    for k in g:
+        keep[f"out/{k}"] = out[k].to_local().cpu().numpy()
+        keep[f"res/{k}"] = res[k].to_local().cpu().numpy()
+    # the exchange over a table axis of two ranks, each path timed: the
+    # all-to-all, an overflow (one id for all at capacity factor 1) on the
+    # reference's psum path, and the ranks holding different ids (rank 0
+    # one id, rank 1 uniform ones) on the gathered psum path
+    ex = port.exchange
+    tmesh = compat.make_mesh((1, 2), names, device=DEVICE)
+    V, d = DIST_CHILD_TABLE
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    table = torch.randn(V, d, generator=gen, device=DEVICE)
+    uniform = torch.randint(0, V, (DIST_CHILD_IDS,), generator=gen, device=DEVICE)
+    one_id = torch.full_like(uniform, 7)
+    for name, ids, cf in (("uniform", uniform, 2.0), ("one_id", one_id, 1.0),
+                          ("mixed", one_id if rank == 0 else uniform, 1.0)):
+        lk = ex.make_alltoall_lookup(tmesh, "model", ("data",), capacity_factor=cf)
+        ex.reset_path_counts()
+        got = lk(table, ids)
+        keep[f"exchange/{name}/equal"] = np.asarray(torch.equal(got.to_local(), table[ids]))
+        keep[f"exchange/{name}/paths"] = np.asarray([ex.PATH_COUNTS[p] for p in ex.PATH_COUNTS])
+        keep[f"exchange/{name}/ms"] = np.asarray(fenced_ms(torch, lambda: lk(table, ids), 5))
+    # the launcher's step on the card
+    state, losses, ms = launcher_run(torch, port, cfg, mesh, DEVICE, batches)
+    keep["card_losses"] = np.asarray(losses)
+    keep["card_ms"] = np.asarray(ms)
+    for path, leaf in port.ckpt._flatten(whole_state(port, state)[0]):
+        t = torch.stack(leaf) if isinstance(leaf, list) else leaf
+        keep[f"params/{port.ckpt._name(path)}"] = t.float().cpu().numpy()
+    np.savez(work / f"rank{rank}.npz", **keep)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def main_dist(torch, np, port: Port, seed: int, sizes: dict) -> dict:
+    """The multi-device layer on the card, on a (1, 1) ("data", "model")
+    mesh of this process (a one-rank group: NCCL for the card's tensors,
+    gloo for the host's), and on two children in one gloo group."""
+    compat, sh, lt, ck, loop, tf = (port.compat, port.sharding, port.launch_train, port.ckpt,
+                                    port.loop, port.tf)
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "dist_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {"phase": "main-dist"}
+    B, S, steps = sizes["batch"], sizes["seq"], sizes["steps"]
+    # the launcher's data pipeline, counted: the parity run's batches and the
+    # children's reduced ones
+    port.reset_launches()
+    pipe = lt.pipeline(S, B, DEVICE)
+    batches = [next(pipe) for _ in range(steps)]
+    small_pipe = lt.pipeline(DIST_SMALL["seq"], DIST_SMALL["batch"], DEVICE)
+    small = [next(small_pipe) for _ in range(DIST_SMALL["steps"])]
+    # (its one 9-byte blocklist pattern at k = 0 over 4 KiB documents takes
+    # the engine's sparse count, plain PyTorch as the reference's jnp: no
+    # kernel launches on this path; the counts are read all the same)
+    launches = port.launches()
+    out["pipeline_launches"] = {k: v for k, v in launches.items() if v}
+    np.savez(work / "batches.npz", **{f"{k}{i}": b[k] for i, b in enumerate(small)
+                                     for k in ("tokens", "targets")})
+    children = start_dist_children(work)
+    deadline = time.perf_counter() + DIST_CHILD_TIMEOUT_S
+    try:
+        rank, world = compat.init_process_group(DEVICE)
+        check((rank, world) == (0, 1), f"main-dist: joined as {(rank, world)}")
+        mesh = port.mesh.make_local_mesh(("data", "model"), device=DEVICE)
+        check(compat.mesh_axes(mesh) == {"data": 1, "model": 1} and mesh.device_type == DEVICE,
+              f"main-dist: mesh {mesh}")
+        out["backend"] = str(dist.get_backend())
+
+        # 1. launcher parity: the mesh step against make_train_step, step by
+        # step in turns (one device, mesh, mesh, one device, ...)
+        cfg = dataclasses.replace(port.configs.get_arch("smollm-135m").make_config(),
+                                  vocab=port.pipeline.VOCAB)
+        ocfg = port.opt.AdamWConfig(peak_lr=3e-3, warmup_steps=20, total_steps=steps)
+        mesh_step, pspecs = lt.make_step(cfg, mesh, B, S, ocfg)
+        state = lt.init_state(cfg, mesh, pspecs, torch.device(DEVICE))
+        p1 = tf.init_params(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE)
+        s1 = port.opt.adamw_init(p1)
+        plain_step = loop.make_train_step(lambda p, b: tf.train_loss(p, cfg, b), ocfg)
+        mesh_losses, mesh_ms, one_losses, one_ms = [], [], [], []
+
+        def run_mesh(b):
+            nonlocal state
+            t0 = time.perf_counter()
+            *state, m = mesh_step(*state, b)
+            mesh_losses.append(float(m["loss"]))  # a sync
+            mesh_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def run_one(b):
+            nonlocal p1, s1
+            t0 = time.perf_counter()
+            p1, s1, m = plain_step(p1, s1, b)
+            one_losses.append(float(m["loss"]))
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+
+        for i, b in enumerate(batches):
+            b = loop.batch_to(b, DEVICE)
+            for run_step in ((run_one, run_mesh) if i % 2 == 0 else (run_mesh, run_one)):
+                run_step(b)
+        state = tuple(state)
+        whole = whole_state(port, state)
+        bit_equal = mesh_losses == one_losses
+        try:
+            same_bits(torch, whole, (p1, s1), "main-dist mesh state")
+        except RuntimeError:
+            bit_equal = False
+        parity = {"model": "smollm-135m", "dtype": cfg.dtype, "batch": B, "seq": S,
+                  "steps": steps, "bit_equal": bit_equal, "mesh_losses": mesh_losses,
+                  "one_device_losses": one_losses,
+                  "mesh_step_ms_median": statistics.median(mesh_ms[1:]),
+                  "one_device_step_ms_median": statistics.median(one_ms[1:]),
+                  "mesh_step_ms": mesh_ms, "one_device_step_ms": one_ms}
+        if not bit_equal:
+            parity["loss_max_rel_diff"] = max(abs(a - b) / abs(b)
+                                              for a, b in zip(mesh_losses, one_losses))
+            check(parity["loss_max_rel_diff"] <= TRAIN_TOL, f"main-dist losses {parity}")
+            parity["state_max_rel_err"] = tree_err(torch, whole, (p1, s1), "main-dist mesh state",
+                                                   TRAIN_TOL)
+        out["launcher"] = parity
+        grads = loop.value_and_grad(lambda p, b: tf.train_loss(p, cfg, b), p1,
+                                    loop.batch_to(batches[0], DEVICE))[1]
+        del p1, s1
+
+        # 2. placement: every arch's tables on the mesh, three archs placed
+        tables = {}
+        for arch in port.configs.ARCH_IDS:
+            spec = port.configs.get_arch(arch)
+            if spec.family == "lm":
+                acfg = spec.make_config()
+                ps = sh.lm_param_specs(acfg, mesh)
+                sh.tree_to_shardings(mesh, sh.opt_state_specs(ps))
+                sh.lm_activation_table(acfg, mesh, "lm_train", B)
+                sh.lm_batch_specs("lm_train", mesh, B)
+            elif spec.family == "gnn":
+                ps = sh.gnn_param_specs(port.gnn.param_shapes(spec.make_config("full_graph_sm")))
+                sh.gnn_activation_table(mesh)
+            else:
+                acfg = spec.make_config()
+                ps = sh.recsys_param_specs(acfg, mesh, port.recsys.param_shapes(acfg))
+            tables[arch] = sum(1 for _ in named_leaves(sh.tree_to_shardings(mesh, ps)))
+        out["spec_tables_leaves"] = tables
+        placed = {}
+        dcn_cfg = port.configs.get_arch("dcn-v2").make_config()
+        gen = lambda: torch.Generator(device=DEVICE).manual_seed(seed)
+        dcn = port.recsys.init_params(gen(), dcn_cfg, device=DEVICE)
+        gnn = port.gnn.init_params(
+            gen(), port.configs.get_arch("gatedgcn").make_config("full_graph_sm"), device=DEVICE)
+        for name, whole_tree, specs in (
+                ("smollm-135m", whole[0], sh.lm_param_specs(cfg, mesh)),
+                ("dcn-v2", dcn, sh.recsys_param_specs(dcn_cfg, mesh, dcn)),
+                ("gatedgcn", gnn, sh.gnn_param_specs(gnn))):
+            dt = sh.distribute_tree(whole_tree, mesh, specs)
+            n = 0
+            for (path, d), (_, w) in zip(named_leaves(dt), named_leaves(whole_tree)):
+                check(d.to_local().device.type == DEVICE and torch.equal(d.to_local(), w),
+                      f"main-dist: {name} {path} local shard differs from the whole tensor")
+                n += 1
+            placed[name] = n
+        out["placed_leaves"] = placed
+        del gnn, dt
+
+        # 3. int8 compression of smollm's gradient tree (float32, as the
+        # launcher's all-reduce carries it), on the card and on the CPU
+        g32 = port.lm_common.tree_map(lambda g: g.float(), grads)
+        del grads
+        P = compat.P
+
+        def compress(m, g):
+            run = compat.shard_map(lambda g, r: port.compression.quantized_psum(g, r, "data"),
+                                   mesh=m, in_specs=(P(), P()), out_specs=(P(), P()))
+            o, r = run(g, port.compression.zeros_residuals(g))
+            return ({k: v.to_local() for k, v in named_leaves(o)},
+                    {k: v.to_local() for k, v in named_leaves(r)})
+
+        got, res = compress(mesh, g32)
+        ms = fenced_ms(torch, lambda: compress(mesh, g32), 5)
+        worst_err, worst_recon = 0.0, 0.0
+        for name, g in named_leaves(g32):
+            gmax = float(g.abs().max())
+            err = float((got[name] - g).abs().max()) / max(gmax, 1e-30)
+            recon = float((got[name] + res[name] - g).abs().max())
+            check(err < 1e-2 and recon <= 1e-6,
+                  f"main-dist compression {name}: error {err} of the max, reconstruction {recon}")
+            worst_err, worst_recon = max(worst_err, err), max(worst_recon, recon)
+        cpu_mesh = compat.make_mesh((1, 1), ("data", "model"), device="cpu")
+        cpu_got, cpu_res = compress(cpu_mesh,
+                                    port.lm_common.tree_map(lambda g: g.cpu(), g32))
+        diff = max(max(float((got[k].cpu() - cpu_got[k]).abs().max()),
+                       float((res[k].cpu() - cpu_res[k]).abs().max())) for k in got)
+        differing = sum(int((got[k].cpu() != cpu_got[k]).sum()) for k in got)
+        out["compression"] = {"leaves": len(got), "elements": sum(g.numel() for g in got.values()),
+                              "max_err_of_leaf_max": worst_err, "max_reconstruction": worst_recon,
+                              "ms_median": statistics.median(ms), "ms": ms,
+                              "cpu_bit_equal": diff == 0.0, "cpu_max_abs_diff": diff,
+                              "cpu_outputs_differing": differing}
+        del g32, got, res, cpu_got, cpu_res
+
+        # 4. the exchange on DCN-v2's largest table, both paths
+        ex = port.exchange
+        table = max(dcn["tables"], key=lambda t: t.shape[0])
+        V, n = table.shape[0], sizes["ids"]
+        rng = np.random.RandomState(seed)
+        ids = {"uniform": torch.randint(0, V, (n,), generator=gen(), device=DEVICE),
+               "zipf": torch.from_numpy((rng.zipf(1.3, n) - 1) % V).to(DEVICE),
+               "one_id": torch.full((n,), 7, dtype=torch.int64, device=DEVICE)}
+        exchange = {"table_rows": V, "dim": table.shape[1], "ids": n}
+        ex.reset_path_counts()
+        timed = 5
+        # on a table axis of one rank every id is local: the capacity factor
+        # alone picks the path (below 1 the bucket overflows)
+        for cf, path in ((2.0, "alltoall"), (0.5, "psum")):
+            lk = ex.make_alltoall_lookup(mesh, "model", ("data",), capacity_factor=cf)
+            for name, x in ids.items():
+                check(torch.equal(lk(table, x).to_local(), table[x]),
+                      f"main-dist: exchange {name} at capacity {cf} differs from table[ids]")
+            exchange[f"{path}_ms_median"] = statistics.median(
+                fenced_ms(torch, lambda: lk(table, ids["uniform"]), timed))
+        counts = dict(ex.PATH_COUNTS)
+        check(counts == {"alltoall": len(ids) + timed, "psum": len(ids) + timed,
+                         "psum_gathered": 0},
+              f"main-dist: exchange paths {counts}")
+        exchange["path_counts"] = counts
+        out["exchange"] = exchange
+        del dcn, table, ids
+
+        # 5. elastic restore onto the card's mesh: the mesh run's state,
+        # saved by this rank, and (below) the children's CPU checkpoint
+        shardings = (sh.tree_to_shardings(mesh, sh.lm_param_specs(cfg, mesh)),
+                     sh.tree_to_shardings(mesh, sh.opt_state_specs(sh.lm_param_specs(cfg, mesh))))
+        t0 = time.perf_counter()
+        ck.save(state, work / "card_ckpt", steps)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, at = ck.restore(state, work / "card_ckpt", shardings=shardings)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(at == steps, f"main-dist: restored step {at}")
+        same_bits(torch, whole_state(port, back), whole, "main-dist restored state")
+        out["restore"] = {"save_s": save_s, "restore_s": restore_s, "leaves": sum(
+            1 for _ in named_leaves(whole))}
+        del back, state, whole
+
+        # 6. the one-rank run the children are held against
+        small_cfg = reduced_lm(port)
+        small_state, small_losses, _ = launcher_run(torch, port, small_cfg, mesh, DEVICE, small)
+        small_params = whole_state(port, small_state)[0]
+        wait_children(*children, work, deadline)
+        out["two_ranks"] = dist_results(torch, np, port, work, small_cfg, mesh, small_params,
+                                        small_losses)
+    finally:
+        procs, logs = children
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds_in_phase"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"launches": launches}
+
+
+def dist_results(torch, np, port: Port, work: Path, cfg, mesh, params, losses) -> dict:
+    """The two children's results against this process's: the compression
+    against the same sum formed here, the exchange, the launcher's losses
+    and parameters against the one-rank run, and their CPU checkpoint
+    restored onto the card's mesh."""
+    sh, ck = port.sharding, port.ckpt
+    z = [np.load(work / f"rank{r}.npz") for r in range(2)]
+    # int8 compression: one grid (the max amax of the two), an exact sum
+    g = [rank_grads(torch, r) for r in range(2)]
+    for k in g[0]:
+        amax = torch.maximum(g[0][k].abs().max(), g[1][k].abs().max())
+        scale = torch.clamp(amax / torch.full((), 127.0, device=DEVICE), min=1e-30)
+        q = [torch.clamp(torch.round(x[k] / scale), -127, 127) for x in g]
+        total = ((q[0].to(torch.int32) + q[1].to(torch.int32)).float() * scale).cpu().numpy()
+        for r in range(2):
+            check(np.array_equal(z[r][f"out/{k}"], total),
+                  f"main-dist: rank {r}'s compressed sum of {k} differs")
+            check(np.array_equal(z[r][f"res/{k}"], (g[r][k] - q[r] * scale).cpu().numpy()),
+                  f"main-dist: rank {r}'s residual of {k} differs")
+    paths = {"uniform": [1, 0, 0], "one_id": [0, 1, 0], "mixed": [0, 0, 1]}
+    for r in range(2):
+        for name, want in paths.items():
+            check(bool(z[r][f"exchange/{name}/equal"])
+                  and list(z[r][f"exchange/{name}/paths"]) == want,
+                  f"main-dist: rank {r}'s exchange {name}")
+    # rank 0's times, each path's 5 calls (this process's phase runs on
+    # the card meanwhile)
+    exchange_ms = {}
+    for name in paths:
+        ms = z[0][f"exchange/{name}/ms"].tolist()
+        exchange_ms.update({f"{name}_ms_median": statistics.median(ms), f"{name}_ms": ms})
+    # the launcher's step on two ranks of the card against one
+    want = {ck._name(p): (torch.stack(l) if isinstance(l, list) else l).float().cpu().numpy()
+            for p, l in ck._flatten(params)}
+    worst = max(abs(a - b) / abs(b) for r in range(2)
+                for a, b in zip(z[r]["card_losses"], losses))
+    for r in range(2):
+        for name, w in want.items():
+            err = float(np.abs(z[r][f"params/{name}"] - w).max()) / max(float(np.abs(w).max()), 1e-30)
+            worst = max(worst, err)
+    check(worst <= DIST_TOL, f"main-dist: two ranks against one {worst} > {DIST_TOL}")
+    # the CPU checkpoint (zero_dp, rank 0 wrote it) restored onto the card
+    pspecs = sh.lm_param_specs(cfg, mesh, "zero_dp")
+    like = port.tf.param_shapes(cfg)
+    back, at = ck.restore((like, port.opt.adamw_init(like)), work / "ckpt",
+                          shardings=(sh.tree_to_shardings(mesh, pspecs),
+                                     sh.tree_to_shardings(mesh, sh.opt_state_specs(pspecs))))
+    n = 0
+    for path, leaf in ck._flatten(whole_state(port, back)):
+        t = torch.stack(leaf) if isinstance(leaf, list) else leaf
+        check(t.device.type == DEVICE and np.array_equal(t.float().cpu().numpy(),
+                                                         z[0][f"ckpt/{ck._name(path)}"]),
+              f"main-dist: the two-rank CPU checkpoint's {ck._name(path)} differs on the card")
+        n += 1
+    return {"ranks": 2, "backend": "gloo", "max_rel_err_against_one_rank": worst,
+            "tolerance": DIST_TOL, "card_step_ms": z[0]["card_ms"].tolist(),
+            "cpu_checkpoint_leaves_restored": n, "checkpoint_step": at,
+            "exchange_table_axis_2": {"table_rows": DIST_CHILD_TABLE[0],
+                                      "dim": DIST_CHILD_TABLE[1], "ids": DIST_CHILD_IDS,
+                                      **exchange_ms}}
+
+
 # Every phase, in the order a bare run takes them; env and build always run
 PHASES = ("compare", "compare-multi", "compare-stream", "compare-approx", "compare-automaton",
           "main", "main-multi", "main-stream", "main-approx", "main-dict", "main-serve",
           "compare-shard", "main-shard", "compare-lm", "main-lm", "main-pipeline",
-          "compare-train", "main-train", "compare-recsys", "compare-gnn", "main-recsys",
+          "compare-train", "main-train", "main-dist", "compare-recsys", "compare-gnn", "main-recsys",
           "main-gnn", "fault7", "compare-baselines", "timing-baselines", "timing")
 # Phases that read another phase's result run it too: the main stream's host
 # genome and patterns (the sharded phases), its window (megascan's timing),
@@ -4376,9 +4868,13 @@ def main() -> int:
     ap.add_argument("--shard-child", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--coordinator", help=argparse.SUPPRESS)
     ap.add_argument("--child-dir", help=argparse.SUPPRESS)
+    # and main-dist's two-rank run with these
+    ap.add_argument("--dist-child", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.shard_child is not None:
         return shard_child(args)
+    if args.dist_child is not None:
+        return dist_child(args)
     run = selected_phases(args.phases)
 
     import numpy as np
@@ -4513,6 +5009,15 @@ def main() -> int:
         # (k = 1), megascan a window of the oversize documents
         for name in ("approx", "megascan"):
             launches[name] += trained["launches"][name]
+    if "main-dist" in run:
+        t0 = time.perf_counter()
+        distd = main_dist(torch, np, port, args.seed,
+                          {"batch": 8, "seq": 1024, "steps": 10, "ids": 1 << 20})
+        emit({"phase": "main-dist", "launches": {k: v for k, v in distd["launches"].items() if v},
+              "seconds": round(time.perf_counter() - t0, 3)})
+        # the launcher's data pipeline
+        for name, v in distd["launches"].items():
+            launches["acscan" if name == "acscan_counts" else name] += v
     if "compare-recsys" in run:
         t0 = time.perf_counter()
         compared_rs = compare_recsys(torch, np, port, args.seed,

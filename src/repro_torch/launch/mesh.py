@@ -1,12 +1,12 @@
-"""The shard-stream cluster entrypoint and the production mesh's device
-check, in the PyTorch port.
+"""Mesh construction and the shard-stream cluster entrypoint, in the
+PyTorch port.  FUNCTIONS, not module-level constants: importing this
+module touches no device and opens no socket.
 
-The port's counterpart of ``repro.launch.mesh.init_stream_cluster``: the
-processes of one sharded scan join a ``torch.distributed`` gloo group.  Of
-the reference's meshes only the device count of the production mesh is
-here: training runs on one device until the multi-device layer (the spec
-tables of ``dist/sharding.py``) is ported.  Importing this module touches
-no device and opens no socket.
+The port's copy of ``repro.launch.mesh``.  Meshes are
+``torch.distributed.device_mesh.DeviceMesh``es over the ranks of the
+current ``torch.distributed`` group, built by ``dist.compat.make_mesh``
+(which joins a group first if there is none); a rank is one device.
+``init_stream_cluster`` joins the gloo group of one sharded scan.
 """
 
 from __future__ import annotations
@@ -16,18 +16,21 @@ from typing import Optional, Tuple
 from repro_torch.dist import compat
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16x16 mesh (2x16x16 with multi_pod) needs 256 (512)
-    devices: raise on fewer, as the reference's mesh construction does.
-    With enough devices it still raises: the port has no sharded model
-    path yet."""
-    import torch
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """16x16 ranks over ("data", "model"); (2, 16, 16) over ("pod", "data",
+    "model") when multi_pod (512 ranks).  Raises ValueError when the group
+    has fewer ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return compat.make_mesh(shape, axes, device=device)
 
-    need = 512 if multi_pod else 256
-    have = torch.cuda.device_count()
-    if have < need:
-        raise ValueError(f"the production mesh needs {need} devices; this host has {have}")
-    raise NotImplementedError("the production mesh waits for the port's multi-device layer")
+
+def make_local_mesh(axis_names=("data", "model"), *, device=None):
+    """Mesh over every rank of the group (one when this process is alone).
+    Puts all ranks on the first axis."""
+    _, n = compat.init_process_group(device)
+    shape = (n,) + (1,) * (len(axis_names) - 1)
+    return compat.make_mesh(shape, axis_names, device=device)
 
 
 def init_stream_cluster(

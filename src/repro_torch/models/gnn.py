@@ -17,9 +17,9 @@ them on axis 0 with ``jax.vmap`` and scans); with ``cfg.remat`` each layer
 runs under ``torch.utils.checkpoint``, as the reference's
 ``jax.checkpoint`` of the scanned body.  The padding edges of a sampled
 subgraph (node 0 to node 0, ``edge_mask`` 0) are live here as there: the
-reference's backbone never reads ``edge_mask``.  ``constrain`` (a sharding
-hook in the reference) is an identity argument until the multi-device
-layer.
+reference's backbone never reads ``edge_mask``.  ``constrain`` is the
+reference's sharding hook, called at "nodes" and "edges"
+(``dist.sharding.gnn_activation_table``); it defaults to the identity.
 """
 
 from __future__ import annotations

@@ -20,6 +20,12 @@ scanned layer): the backward pass recomputes it, so activation memory is
 one layer deep.  The decode steps write the new K/V entries into the
 caches in place, at ``pos``, and return them; no other operation here is
 in place.
+
+Every forward pass takes the reference's ``constrain(x, name)`` hook,
+called with the same names at the same points ("residual", "qkv",
+"kv_attn", "ffn_hidden", "moe_in", "logits", "kv_cache", "kv_cache_l",
+"kv_cache_scale"); ``dist.sharding.make_constrain`` builds one from an
+activation table.  It defaults to the identity.
 """
 
 from __future__ import annotations
@@ -156,6 +162,11 @@ def param_shapes(cfg: LMConfig):
 # Blocks
 # ---------------------------------------------------------------------------
 
+def _no_constrain(x, name):
+    del name
+    return x
+
+
 def _qkv(x, lp, cfg: LMConfig, positions):
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -165,29 +176,35 @@ def _qkv(x, lp, cfg: LMConfig, positions):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
-def _attn_block(h, lp, cfg: LMConfig, positions):
+def _attn_block(h, lp, cfg: LMConfig, positions, constrain=_no_constrain):
     B, S, _ = h.shape
     q, k, v = _qkv(rmsnorm(h, lp["ln1"], cfg.norm_eps), lp, cfg, positions)
+    q = constrain(q, "qkv")
+    k = constrain(k, "kv_attn")
+    v = constrain(v, "kv_attn")
     o = flash_attention(q, k, v, causal=True, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
     return h + (o.reshape(B, S, -1) @ lp["wo"]), (k, v)
 
 
-def _ffn_block(h, lp, cfg: LMConfig):
+def _ffn_block(h, lp, cfg: LMConfig, constrain=_no_constrain):
     B, S, d = h.shape
     x = rmsnorm(h, lp["ln2"], cfg.norm_eps)
     if cfg.is_moe:
+        x = constrain(x, "moe_in")
         y, aux = moe_ffn(x.reshape(B * S, d), lp["moe"], cfg.moe_cfg)
         y = y.reshape(B, S, d)
     else:
         hmid = F.silu(x @ lp["mlp"]["w1"]) * (x @ lp["mlp"]["w3"])
+        hmid = constrain(hmid, "ffn_hidden")
         y = hmid @ lp["mlp"]["w2"]
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h + y, aux
 
 
-def _layer(h, lp, cfg: LMConfig, positions):
-    h, _ = _attn_block(h, lp, cfg, positions)
-    return _ffn_block(h, lp, cfg)
+def _layer(h, lp, cfg: LMConfig, positions, constrain):
+    h, _ = _attn_block(h, lp, cfg, positions, constrain)
+    h, aux = _ffn_block(h, lp, cfg, constrain)
+    return constrain(h, "residual"), aux
 
 
 def _logits(params, cfg: LMConfig, h_last) -> torch.Tensor:
@@ -199,27 +216,27 @@ def _logits(params, cfg: LMConfig, h_last) -> torch.Tensor:
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def backbone(params, cfg: LMConfig, tokens: torch.Tensor):
+def backbone(params, cfg: LMConfig, tokens: torch.Tensor, constrain=_no_constrain):
     """(B, S) int -> (final hidden states (B, S, d), the mean of the layers'
     aux losses; dense layers give 0)."""
     dt = dtype_of(cfg.dtype)
-    h = params["embed"][tokens.long()].to(dt)
+    h = constrain(params["embed"][tokens.long()].to(dt), "residual")
     positions = torch.arange(tokens.shape[1], device=h.device)
     auxs = []
     for lp in params["layers"]:
         if cfg.remat:
             # a layer draws nothing at random: no RNG state to replay
-            h, aux = checkpoint(_layer, h, lp, cfg, positions,
+            h, aux = checkpoint(_layer, h, lp, cfg, positions, constrain,
                                 use_reentrant=False, preserve_rng_state=False)
         else:
-            h, aux = _layer(h, lp, cfg, positions)
+            h, aux = _layer(h, lp, cfg, positions, constrain)
         auxs.append(aux)
     h = rmsnorm(h, params["ln_f"], cfg.norm_eps)
     return h, torch.stack(auxs).mean()
 
 
 def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor, targets: torch.Tensor,
-                    chunk: int) -> torch.Tensor:
+                    chunk: int, constrain=_no_constrain) -> torch.Tensor:
     """Cross-entropy without materializing (B, S, V) logits at once: float32
     logits a chunk of positions at a time, the target logit picked by
     mask-and-sum as in the reference."""
@@ -230,7 +247,7 @@ def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor, targets: torch.Tenso
     vocab = torch.arange(unembed.shape[-1], device=h.device)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     for lo in range(0, S, chunk):
-        logits = (h[:, lo : lo + chunk] @ unembed).float()  # (B, c, V)
+        logits = constrain((h[:, lo : lo + chunk] @ unembed).float(), "logits")  # (B, c, V)
         lse = torch.logsumexp(logits, dim=-1)
         tt = targets[:, lo : lo + chunk].long()
         picked = torch.where(vocab == tt[..., None], logits, 0.0).sum(dim=-1)
@@ -238,30 +255,32 @@ def chunked_ce_loss(h: torch.Tensor, unembed: torch.Tensor, targets: torch.Tenso
     return tot / (B * S)
 
 
-def train_loss(params, cfg: LMConfig, batch) -> torch.Tensor:
+def train_loss(params, cfg: LMConfig, batch, constrain=_no_constrain) -> torch.Tensor:
     """batch = {"tokens": (B, S), "targets": (B, S)} -> scalar loss."""
-    h, aux = backbone(params, cfg, batch["tokens"])
-    loss = chunked_ce_loss(h, unembed_matrix(params, cfg), batch["targets"], cfg.ce_chunk)
+    h, aux = backbone(params, cfg, batch["tokens"], constrain)
+    loss = chunked_ce_loss(h, unembed_matrix(params, cfg), batch["targets"], cfg.ce_chunk,
+                           constrain)
     return loss + cfg.aux_loss_coef * aux
 
 
-def prefill(params, cfg: LMConfig, tokens: torch.Tensor):
+def prefill(params, cfg: LMConfig, tokens: torch.Tensor, constrain=_no_constrain):
     """(B, S) -> (last-token logits (B, V) float32, kcache, vcache
     (L, B, S, KV, hd))."""
     dt = dtype_of(cfg.dtype)
     tokens = tokens.long()
-    h = params["embed"][tokens].to(dt)
+    h = constrain(params["embed"][tokens].to(dt), "residual")
     positions = torch.arange(tokens.shape[1], device=h.device)
     ks, vs = [], []
     for lp in params["layers"]:
-        h, (k, v) = _attn_block(h, lp, cfg, positions)
-        h, _ = _ffn_block(h, lp, cfg)
-        ks.append(k)
-        vs.append(v)
+        h, (k, v) = _attn_block(h, lp, cfg, positions, constrain)
+        h, _ = _ffn_block(h, lp, cfg, constrain)
+        h = constrain(h, "residual")
+        ks.append(constrain(k, "kv_cache"))
+        vs.append(constrain(v, "kv_cache"))
     return _logits(params, cfg, h[:, -1, :]), torch.stack(ks), torch.stack(vs)
 
 
-def _decode(params, cfg: LMConfig, token, pos: int, write_kv, attend):
+def _decode(params, cfg: LMConfig, token, pos: int, write_kv, attend, constrain):
     """The layer loop shared by both decode steps: ``write_kv(l, k, v)``
     stores the new entries at ``pos``, ``attend(l, q)`` reads the cache."""
     dt = dtype_of(cfg.dtype)
@@ -272,11 +291,11 @@ def _decode(params, cfg: LMConfig, token, pos: int, write_kv, attend):
         q, k, v = _qkv(rmsnorm(h, lp["ln1"], cfg.norm_eps), lp, cfg, positions)
         write_kv(l, k, v)
         h = h + (attend(l, q).reshape(B, 1, -1) @ lp["wo"])
-        h, _ = _ffn_block(h, lp, cfg)
+        h, _ = _ffn_block(h, lp, cfg, constrain)
     return _logits(params, cfg, h[:, 0, :])
 
 
-def decode_step(params, cfg: LMConfig, token, pos, kcache, vcache):
+def decode_step(params, cfg: LMConfig, token, pos, kcache, vcache, constrain=_no_constrain):
     """One decoding step.
 
     token:  (B, 1) int — the newest token.
@@ -291,9 +310,10 @@ def decode_step(params, cfg: LMConfig, token, pos, kcache, vcache):
         vcache[l, :, pos] = v[:, 0].to(vcache.dtype)
 
     def attend(l, q):
-        return decode_attention(q, kcache[l], vcache[l], pos + 1)
+        kc, vc = constrain(kcache[l], "kv_cache_l"), constrain(vcache[l], "kv_cache_l")
+        return decode_attention(q, kc, vc, pos + 1)
 
-    return _decode(params, cfg, token, pos, write_kv, attend), kcache, vcache
+    return _decode(params, cfg, token, pos, write_kv, attend, constrain), kcache, vcache
 
 
 def make_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None, *, device=None):
@@ -337,7 +357,8 @@ def quantize_cache(kc: torch.Tensor, vc: torch.Tensor):
     return {"q": kq, "scale": ks}, {"q": vq, "scale": vs}
 
 
-def decode_step_q8(params, cfg: LMConfig, token, pos, kcache, vcache):
+def decode_step_q8(params, cfg: LMConfig, token, pos, kcache, vcache,
+                   constrain=_no_constrain):
     """decode_step with int8 KV caches: cache dicts {"q": int8, "scale": f32}.
 
     New K/V entries are quantized before insertion; attention dequantizes on
@@ -352,7 +373,9 @@ def decode_step_q8(params, cfg: LMConfig, token, pos, kcache, vcache):
             cache["scale"][l, :, pos] = xs
 
     def attend(l, q):
-        return decode_attention_q8(q, kcache["q"][l], kcache["scale"][l],
-                                   vcache["q"][l], vcache["scale"][l], pos + 1)
+        kq, vq = constrain(kcache["q"][l], "kv_cache_l"), constrain(vcache["q"][l], "kv_cache_l")
+        ks = constrain(kcache["scale"][l], "kv_cache_scale")
+        vs = constrain(vcache["scale"][l], "kv_cache_scale")
+        return decode_attention_q8(q, kq, ks, vq, vs, pos + 1)
 
-    return _decode(params, cfg, token, pos, write_kv, attend), kcache, vcache
+    return _decode(params, cfg, token, pos, write_kv, attend, constrain), kcache, vcache

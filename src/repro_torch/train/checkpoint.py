@@ -21,9 +21,17 @@ as their 16 raw bits under the header ml_dtypes' bfloat16 gives
 other's checkpoints, and neither this module nor its callers need
 ml_dtypes.
 
-``restore`` puts the tensors on ``device`` (default: the card); the
-reference's ``shardings`` (a mesh placement) waits for the multi-device
-layer.
+``restore`` puts the tensors on ``device`` (default: the card), or, given
+``shardings`` (a matching tree of ``dist.sharding.NamedSharding``s, as the
+reference's tree of shardings), returns DTensors on their meshes whose
+local shards are the saved arrays' slices: each rank maps the ``.npy``
+files (``mmap_mode="r"``) and reads only its own slices, so a checkpoint
+restores onto any mesh whatever the layout it was written from (elastic
+restore).  ``save`` of a tree holding DTensors gathers each whole tensor
+(a collective: every rank of the mesh calls ``save``); rank 0 writes, and
+the other ranks wait for it at a barrier (a sync save) or return at once
+(an async save: the caller waits for rank 0's writer, then all meet at a
+barrier).
 """
 
 from __future__ import annotations
@@ -72,6 +80,13 @@ def _name(path) -> str:
     return _SEP.join(path) or "leaf"
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value (gathered); any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def _to_host(leaf) -> np.ndarray:
     """A leaf (or a stacked layer list) as a host array; bfloat16 as its
     raw bits (uint16)."""
@@ -95,17 +110,36 @@ def _write_npy(path: Path, arr: np.ndarray, dtype: str) -> None:
         f.write(arr.tobytes())
 
 
+def _is_sharded(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(x, DTensor) for _, leaf in _flatten(tree)
+               for x in (leaf if isinstance(leaf, list) else [leaf]))
+
+
 def save(tree, directory, step: int, *, keep: int = 3, async_: bool = False):
-    """Save a tree of tensors; returns the writer thread when ``async_``."""
+    """Save a tree of tensors; returns the writer thread when ``async_``
+    (None on the ranks that do not write)."""
+    import torch.distributed as dist
+
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
+    sharded = _is_sharded(tree)
+    writer = not sharded or dist.get_rank() == 0
     # copy to the host BEFORE handing to the writer thread: the caller may
     # go on and replace the tensors
     host_items = []
     for path, leaf in _flatten(tree):
         dtype = (leaf[0] if isinstance(leaf, list) else leaf).dtype
-        arr = _to_host(leaf)
-        host_items.append((_name(path), arr, _BF16 if dtype == torch.bfloat16 else str(arr.dtype)))
+        whole = [_whole(x) for x in leaf] if isinstance(leaf, list) else _whole(leaf)
+        if writer:
+            arr = _to_host(whole)
+            host_items.append((_name(path), arr,
+                               _BF16 if dtype == torch.bfloat16 else str(arr.dtype)))
+    if not writer:
+        if not async_:
+            dist.barrier()
+        return None
+    directory.mkdir(parents=True, exist_ok=True)
 
     def _write():
         tmp = directory / f".tmp_step_{step}_{os.getpid()}"
@@ -131,6 +165,8 @@ def save(tree, directory, step: int, *, keep: int = 3, async_: bool = False):
         t.start()
         return t
     _write()
+    if sharded:
+        dist.barrier()
     return None
 
 
@@ -150,22 +186,73 @@ def latest_step(directory) -> Optional[int]:
     return int(re.search(r"step_(\d+)", steps[-1].name).group(1))
 
 
-def _load(d: Path, meta: dict, device) -> torch.Tensor:
-    arr = np.load(d / meta["file"])
-    if meta["dtype"] == _BF16:
+def _as_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
+    if dtype == _BF16:
         # '<V2' (ml_dtypes' header) or uint16: the 16 raw bits either way
         bits = torch.from_numpy(arr.view(np.int16))
         return bits.view(torch.bfloat16).to(device)
-    if str(arr.dtype) != meta["dtype"]:
-        arr = arr.view(np.dtype(meta["dtype"]))
+    if str(arr.dtype) != dtype:
+        arr = arr.view(np.dtype(dtype))
     return torch.from_numpy(arr).to(device)
 
 
-def restore(tree_like, directory, step: Optional[int] = None, *, device=None):
+def _load(d: Path, meta: dict, device) -> torch.Tensor:
+    return _as_tensor(np.load(d / meta["file"]), meta["dtype"], device)
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _restore_sharded(d: Path, by_name: dict, tree_like, shardings):
+    """DTensors placed by ``shardings``, each rank reading its slices."""
+    from repro_torch.dist.compat import from_local, local_slices
+
+    maps = {}
+
+    def load(path, shape, sh, layer):
+        name = _name(path)
+        meta = by_name[name]
+        if name not in maps:
+            maps[name] = np.load(d / meta["file"], mmap_mode="r")
+        arr = maps[name] if layer is None else maps[name][layer]
+        if tuple(arr.shape) != tuple(shape):
+            full = tuple(maps[name].shape)
+            raise ValueError(f"shape mismatch for {name}: {full} vs {tuple(shape)}")
+        placements = sh.placements
+        # a copy of this rank's slices only, out of the mapped file
+        own = np.array(arr[local_slices(shape, sh.mesh, placements)])
+        local = _as_tensor(own, meta["dtype"], _mesh_device(sh.mesh))
+        return from_local(local, sh.mesh, placements, tuple(shape))
+
+    return _rebuild_sharded(tree_like, shardings, (), None, load)
+
+
+def _rebuild_sharded(like, sh, path, layer, load):
+    if isinstance(like, torch.Tensor):
+        return load(path, like.shape, sh, layer)
+    if isinstance(like, Mapping):
+        return {k: _rebuild_sharded(v, sh[k], path + (str(k),), layer, load)
+                for k, v in like.items()}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_rebuild_sharded(getattr(like, f), getattr(sh, f), path + (f,), layer,
+                                             load) for f in like._fields))
+    if is_stacked_layers(path, like):
+        return [_rebuild_sharded(x, s, path, i, load) for i, (x, s) in enumerate(zip(like, sh))]
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild_sharded(x, s, path + (str(i),), layer, load)
+                          for i, (x, s) in enumerate(zip(like, sh)))
+    raise TypeError(f"checkpoint leaf {_name(path)!r} is a {type(like).__name__}")
+
+
+def restore(tree_like, directory, step: Optional[int] = None, *, device=None, shardings=None):
     """Restore into the structure of ``tree_like`` (a tree of tensors; meta
     tensors will do, only shapes are read) on ``device`` (default: the
-    card).  Returns (tree, step)."""
-    dev = resolve_device(device)
+    card), or as DTensors placed by ``shardings`` (a matching tree of
+    ``NamedSharding``s; ``device`` is then the meshes').  Returns (tree,
+    step)."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -174,6 +261,9 @@ def restore(tree_like, directory, step: Optional[int] = None, *, device=None):
     d = directory / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     by_name = {m["name"]: m for m in manifest["leaves"]}
+    if shardings is not None:
+        return _restore_sharded(d, by_name, tree_like, shardings), manifest["step"]
+    dev = resolve_device(device)
 
     def load(path, shape):
         name = _name(path)

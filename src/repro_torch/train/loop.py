@@ -8,6 +8,10 @@ loop runs on ``device`` (default: the card): the initial parameters go
 there, batches (numpy from ``LMDataPipeline``, or tensors) are copied
 there, and a restored checkpoint is placed there.
 
+``make_mesh_train_step`` is the data-parallel step of the mesh launcher
+(``launch.train``): state as DTensors on a ``DeviceMesh``, each rank's
+rows of the global batch, gradients averaged over the data-parallel axes.
+
 As in the reference, a resumed run draws from a fresh ``iter(data)``: step
 ``start`` sees the iterator's first batch.  One difference in mechanics,
 none in what is written: a save first waits for the previous async save
@@ -77,6 +81,87 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, grad_accum: int = 1
         new_p, new_s, metrics = adamw_update(grads, opt_state, params, opt_cfg)
         metrics["loss"] = loss
         return new_p, new_s, metrics
+
+    return step
+
+
+def _dims_over(placements, mesh) -> list:
+    """The mesh dims of more than one rank that ``placements`` shard."""
+    return [i for i, pl in enumerate(placements) if pl.is_shard() and mesh.size(i) > 1]
+
+
+def _local(t):
+    """A DTensor's local shard (an undistributed tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def whole(t):
+    """A DTensor's whole value: gathered where it is sharded over more than
+    one rank, its local shard otherwise; any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return t
+    return t.full_tensor() if _dims_over(t.placements, t.device_mesh) else t.to_local()
+
+
+def make_mesh_train_step(loss_fn: Callable, opt_cfg: AdamWConfig, mesh, batch_specs):
+    """A data-parallel train step over ``mesh`` (a ``DeviceMesh`` whose
+    "model" axis has one rank): ``step(params, opt_state, batch)`` with
+    params and AdamW state as DTensors (placed by
+    ``dist.sharding.lm_param_specs`` / ``opt_state_specs``, or any specs
+    over the data-parallel axes) and ``batch`` the global batch, which
+    every rank holds whole.
+
+    Each rank takes its rows of the batch by ``batch_specs``, gathers the
+    parameters where they are sharded (``zero_dp``), and computes
+    ``loss_fn(params, rows)`` and its gradients.  Where the batch is
+    sharded over more than one rank, the gradients (in float32, one
+    all-reduce of all of them) and the loss are averaged over the axes it
+    is sharded on: the global batch's token mean when every rank holds the
+    same number of rows.  The
+    global gradient norm sums each leaf's squares over its shards, and
+    AdamW updates each rank's shards.  On a mesh of one rank the step
+    equals ``make_train_step``'s bit for bit."""
+    from repro_torch.dist import compat
+
+    axes = list(mesh.mesh_dim_names)
+    # the axes the batch is sharded on (none: every rank runs the whole batch)
+    named = {a for spec in batch_specs.values() for e in spec for a in compat.entry_axes(e)}
+    dp = tuple(a for a in axes if a in named)
+    ranks = compat.axis_size(dp, mesh=mesh) if dp else 1
+
+    def step(params, opt_state, batch):
+        rows = {k: v[compat.local_slices(v.shape, mesh, compat.placements_of(mesh, batch_specs[k]))]
+                for k, v in batch.items()}
+        loss, grads = value_and_grad(loss_fn, tree_map(whole, params), rows)
+        if ranks > 1:
+            flat = torch.cat([g.float().reshape(-1) for g in tree_leaves(grads)])
+            flat = compat.psum(flat, dp, mesh=mesh) / ranks
+            loss = compat.psum(loss, dp, mesh=mesh) / ranks
+            parts = iter(torch.split(flat, [g.numel() for g in tree_leaves(grads)]))
+            grads = tree_map(lambda g: next(parts).reshape(g.shape).to(g.dtype), grads)
+        # each rank's shards of the gradients, and the global norm
+        sq = []
+        shards = []
+        for g, p in zip(tree_leaves(grads), tree_leaves(params)):
+            pl = p.placements
+            gl = g[compat.local_slices(g.shape, mesh, pl)]
+            s2 = torch.sum(torch.square(gl.float()))
+            over = [axes[i] for i in _dims_over(pl, mesh)]
+            sq.append(compat.psum(s2, tuple(over), mesh=mesh) if over else s2)
+            shards.append(gl)
+        norm = torch.sqrt(sum(sq))
+        it = iter(shards)
+        local_g = tree_map(lambda _: next(it), grads)
+        new_p, new_s, metrics = adamw_update(local_g, tree_map(_local, opt_state),
+                                             tree_map(_local, params), opt_cfg, grad_norm=norm)
+        metrics["loss"] = loss
+        placed = lambda new, old: compat.from_local(new, mesh, old.placements, tuple(old.shape))
+        return (tree_map(placed, new_p, params),
+                type(opt_state)(*tree_map(placed, tuple(new_s), tuple(opt_state))), metrics)
 
     return step
 

@@ -62,8 +62,10 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm: Optional[torch.Tensor] = None):
+    """``norm``: the global norm when ``grads`` are one rank's shards of a
+    sharded tree (its squares summed over the shards); default, the tree's own."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -95,9 +97,12 @@ def adamw_init(params, cfg: Optional[AdamWConfig] = None) -> AdamWState:
     )
 
 
-def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
-    """Returns (new_params, new_state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
+                 grad_norm: Optional[torch.Tensor] = None):
+    """Returns (new_params, new_state, metrics).  ``grad_norm``: the global
+    gradient norm, for a rank's shards of sharded trees
+    (``train.loop.make_mesh_train_step``)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, grad_norm)
     step = state.step + 1
     lr = cosine_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -56,7 +56,8 @@ def test_import_leaves_jax_out():
         "repro_torch.configs.bst, repro_torch.configs.dcn_v2, repro_torch.configs.gatedgcn, "
         "repro_torch.core.baselines, repro_torch.kernels.baselines, "
         "repro_torch.kernels.baselines.ops, repro_torch.kernels.baselines.ref, "
-        "repro_torch.kernels.baselines.baselines; "
+        "repro_torch.kernels.baselines.baselines, repro_torch.dist.compression, "
+        "repro_torch.dist.embedding_exchange; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')]; "
         "assert not bad, bad"
     )
@@ -155,3 +156,38 @@ def test_recsys_and_gnn_entry_points_need_the_card_or_cpu(monkeypatch):
         gnn_params_from_numpy({}, gcfg)
     assert recsys.serve_scores(params, rcfg, batch, device="cpu").shape == (4,)
     assert gparams["layers"][0]["A"].device.type == "cpu"
+
+
+def test_meshes_launcher_and_sharded_restore_need_the_card_or_cpu(monkeypatch, tmp_path):
+    """With no card, a mesh, the mesh launcher and a restore onto a mesh run
+    only when the caller asks for the CPU; a CPU mesh restores CPU
+    DTensors.  No group is left behind."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import compat
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: compat.make_mesh((1, 1), ("data", "model")),
+                 lambda: lmesh.make_local_mesh(),
+                 lambda: lmesh.make_production_mesh(),
+                 lambda: compat.init_process_group(),
+                 lambda: launch_train.main(["--reduced", "--steps", "1", "--batch", "2"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        assert not dist.is_initialized()
+    ckpt.save({"w": torch.arange(6.0).reshape(3, 2)}, tmp_path, step=2)
+    try:
+        mesh = lmesh.make_local_mesh(device="cpu")
+        assert mesh.device_type == "cpu"
+        shard = {"w": sh.NamedSharding(mesh, compat.P("data", None))}
+        got, step = ckpt.restore({"w": torch.zeros(3, 2)}, tmp_path, shardings=shard)
+        assert step == 2 and got["w"].to_local().device.type == "cpu"
+        assert torch.equal(got["w"].to_local(), torch.arange(6.0).reshape(3, 2))
+    finally:
+        dist.destroy_process_group()
+    launch_train.main(["--device", "cpu", "--reduced", "--steps", "1", "--batch", "2", "--seq", "32"])
+    assert not dist.is_initialized()
